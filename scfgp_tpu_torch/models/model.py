@@ -1,31 +1,64 @@
-"""User-facing SCFGP model, serving surface: load / set_data / predict /
-update_data / recalibrate_dispersion / save.
+"""User-facing SCFGP model: set_data / optimize / fit / optimize_fused /
+fit_fast / predict / update_data / recalibrate_dispersion / save / load.
 
-Port of the serving methods of ``scfgp_tpu/models/model.py`` (the reference
-model class is ``reference: SCFGP/SCFGP.py:21-317``).  The model lives on
-one torch ``device`` in one ``dtype``; ``device="cuda"`` runs the feature
-map through the CUDA kernel K1 (``ops/phi.py``) and raises when there is no
-card.  Every serving step is forward only and runs under
-``torch.inference_mode()``.  Checkpoints are the JAX package's arrays-only
-npz+JSON files (``utils/checkpoint.py``): each package loads what the other
-saves.  Training (``optimize``, ``fit``, ``fit_fast``, ensembles, the Bayes
-layer) is not part of this module yet.
+Port of ``scfgp_tpu/models/model.py`` (the reference model class is
+``reference: SCFGP/SCFGP.py:21-317``).  The model lives on one torch
+``device`` in one ``dtype``; ``device="cuda"`` runs the feature map and its
+gradient through the CUDA kernels K1f and K1b (``ops/phi.py``) and raises
+when there is no card.  Serving steps are forward only and run under
+``torch.inference_mode()``; training runs under grad, one
+``objective.loss_and_grad`` per step.  Checkpoints are the JAX package's
+arrays-only npz+JSON files (``utils/checkpoint.py``): each package loads
+what the other saves, training-resume state included.
+
+Not ported yet, each raising ``NotImplementedError`` with the ROADMAP.md
+item that brings it: the ``visualizer`` argument, ``mesh=``,
+``fit_fast_batch``, ``fit_ensemble`` and ``fit_bayes``.  The JAX package's
+non-finite refit under an auto-resolved 1-pass TPU matmul precision
+(``_precision_fallback_needed``, ``model.py:1488-1518``) has no
+counterpart: the port computes in IEEE float32 with TF32 off, so the
+condition it guards can never arise.
 """
 
 from __future__ import annotations
 
+import math
 import string
 import sys
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..data.scaler import Scaler
+from ..data.scaler import Scaler, backward_transform_stateless
+from ..opt.fused_loop import fused_optimize, set_generator_state
+from ..opt.optimizers import algos, make_optimizer, tree_add, tree_map
+from ..utils.logging import MetricLogger
 from ..utils.metrics import new_evals_dict, regression_metrics
-from .objective import (Posterior, feature_block, loss_fn, predict_f,
-                        softplus, solve_posterior, sufficient_stats)
-from .params import SCFGPParams, init_params, resolve_sparsity
+from .objective import (Posterior, feature_block, loss_and_grad, loss_fn,
+                        predict_f, softplus, solve_posterior,
+                        sufficient_stats)
+from .params import (SCFGPParams, init_params, opt_state_from_numpy,
+                     opt_state_to_numpy, resolve_sparsity)
+
+DEFAULT_OPT = {
+    # Reference defaulting, SCFGP.py:193-202 (adam overrides beta2 to 0.999).
+    "algo": "adam",
+    "algo_params": {"learning_rate": 0.01, "beta1": 0.9, "beta2": 0.999,
+                    "epsilon": 1e-8},
+}
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(
+        f"{what} is not ported to scfgp_tpu_torch yet: ROADMAP.md Queue 1 "
+        f"{item}")
+
+
+def fit_fast_batch(models, datasets, **opt_params):
+    """``scfgp_tpu.models.model.fit_fast_batch``: not ported yet."""
+    raise _not_ported("fit_fast_batch", "item 5 (batched sweeps)")
 
 
 def _resolve_device(device) -> torch.device:
@@ -38,6 +71,21 @@ def _resolve_device(device) -> torch.device:
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def _trainable(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it if it was made under ``inference_mode`` (as
+    ``update_data`` makes the data): autograd cannot save such a tensor."""
+    return t.clone() if t.is_inference() else t
+
+
+def _median(stacked: torch.Tensor) -> torch.Tensor:
+    """``jnp.median(stacked, axis=0)``: the midpoint ``(lower + upper) *
+    0.5`` of the middle values, so an even count averages the two (where
+    ``torch.median`` would return the lower one)."""
+    s = torch.sort(stacked, dim=0).values
+    n = stacked.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
 
 
 def recalibrated_c(mu_f, std_f, y, c) -> float:
@@ -216,6 +264,392 @@ class SCFGP:
         self._stats = None
         return self
 
+    # -- training -------------------------------------------------------------
+
+    def _eval_fn(self):
+        """Loss WITHOUT update (reference train_func, ``SCFGP.py:134-135``)."""
+        basis = self.extra_basis
+
+        def eval_fn(p, X, y):
+            with torch.no_grad():
+                return loss_fn(p, X, y, basis_fn=basis)
+        return eval_fn
+
+    def _make_step(self, tx):
+        """Loss + grad + optimizer update (the reference's train_iter_func,
+        ``SCFGP.py:136-137``): ``(params, opt_state, X, y) -> (params,
+        opt_state, cost, post)``, ``post`` at the params before the step."""
+        basis = self.extra_basis
+
+        def step(params, opt_state, X, y):
+            (cost, aux), grads = loss_and_grad(params, X, y, basis_fn=basis)
+            delta, opt_state = tx.update(grads, opt_state, params)
+            return tree_add(params, delta), opt_state, cost, aux.post
+        return step
+
+    def _minibatches(self, batchsize, shuffle=True):
+        """Shuffled minibatch generator (``SCFGP.py:172-182``), shuffled by
+        the NumPy ``self._rng`` as in the JAX package, so both draw the same
+        batches.  ``batchsize > N`` degrades to one full batch."""
+        n = self.X.shape[0]
+        batchsize = min(batchsize, n)
+        inds = np.arange(n)
+        if shuffle:
+            self._rng.shuffle(inds)
+        for start in range(0, n - batchsize + 1, batchsize):
+            batch = torch.as_tensor(inds[start:start + batchsize],
+                                    device=self.device)
+            yield self.X[batch], self.y[batch]
+
+    def optimize(self, Xv=None, yv=None, funcs=None, visualizer=None, **args):
+        """Reference-semantics training loop on the host
+        (``SCFGP.py:184-276``; ``scfgp_tpu/models/model.py:620-798``).
+
+        One loss + grad + optimizer step per iteration; early stopping,
+        stall annealing (drawn from the NumPy ``self._rng``, as in the JAX
+        package, so the same seed and params replay its trajectory) and the
+        best-params restore.  ``nbatches > 1`` aggregates the per-batch
+        params by their elementwise median.  ``log_file`` appends one JSON
+        record per iteration; ``checkpoint_path``/``checkpoint_every`` save
+        mid-training checkpoints.  ``resume=True`` continues from
+        ``self._train_state`` (set by a prior ``optimize()`` or restored by
+        ``load()``, from either package): optimizer accumulators, iteration,
+        best-params tracking and the host RNG are restored, so an
+        interrupted-and-resumed run replays the uninterrupted one."""
+        if visualizer is not None:
+            raise _not_ported("optimize(visualizer=...)",
+                              "item 9 (utilities: utils/visualizer.py)")
+        resume = bool(args.get("resume", False))
+        ts = self._train_state
+        if resume and not ts:
+            raise RuntimeError(
+                "optimize(resume=True) requires a prior optimize() or a "
+                "load()ed mid-training checkpoint (no train_state found)")
+        obj = args.get("obj", ts["obj"] if resume else "COST").upper()
+        obj = obj if obj in self.evals else "COST"
+        algo = args.get("algo") or (ts["algo"] if resume else None) \
+            or dict(DEFAULT_OPT)
+        if not isinstance(algo, dict) or algo.get("algo") not in algos:
+            algo = dict(DEFAULT_OPT)
+        nbatches = args.get("nbatches", 1)
+        batchsize = args.get("batchsize", 150)
+        cvrg_tol = args.get("cvrg_tol", 1e-4)
+        max_cvrg = args.get("max_cvrg", 18)
+        max_iter = args.get("max_iter", 500)
+        logger = MetricLogger(args.get("log_file"))
+        checkpoint_path = args.get("checkpoint_path")
+        checkpoint_every = args.get("checkpoint_every", 25)
+        last_ckpt_iter = -1
+
+        if not resume:
+            for metric in self.evals:
+                self.evals[metric][1] = []
+
+        tx = make_optimizer(algo["algo"], algo.get("algo_params"))
+        opt_state = tx.init(self.params)
+        step = self._make_step(tx)
+        eval_fn = self._eval_fn()
+        X, y = _trainable(self.X), _trainable(self.y)
+
+        if Xv is None or yv is None:
+            obj = "COST"
+        else:
+            Xv_t = self._scale_X(Xv)
+            yv_arr = np.asarray(yv).reshape(-1, 1)
+
+        self.min_obj_ind = 0
+        train_start_time = time.time()
+        min_obj_val = np.inf
+        argmin_params = self.params
+        cvrg_iter = 0
+        start_iter = 0
+        if resume:
+            # Dtypes are kept exactly (AdamState.t is float32 beside float64
+            # params): a cast would change beta**t and the replay.
+            opt_state = opt_state_from_numpy(ts["opt_state"], self.device)
+            argmin_params = opt_state_from_numpy(ts["argmin_params"],
+                                                 self.device)
+            self.params = opt_state_from_numpy(ts["params"], self.device)
+            min_obj_val = float(ts["min_obj_val"])
+            cvrg_iter = int(ts["cvrg_iter"])
+            start_iter = int(ts["iteration"]) + 1
+            self.min_obj_ind = int(ts["min_obj_ind"])
+            self._rng.set_state(ts["rng_state"])
+            train_start_time = time.time() - float(ts["elapsed"])
+        for it in range(start_iter, max_iter):
+            if nbatches > 1:
+                params_list, cost_sum, count = [], 0.0, 0
+                for Xb, yb in self._minibatches(batchsize):
+                    self.params, opt_state, cost, self.post = step(
+                        self.params, opt_state, Xb, yb)
+                    params_list.append(self.params)
+                    cost_sum += float(cost)
+                    count += 1
+                    if count == nbatches:
+                        break
+                # The intended robust aggregation: elementwise median of the
+                # per-batch params (the reference's never fed back, a
+                # rebinding bug, SCFGP.py:226-235).
+                self.params = tree_map(
+                    lambda *leaves: _median(torch.stack(leaves)),
+                    *params_list)
+                self.evals["COST"][1].append(cost_sum / count)
+            else:
+                self.params, opt_state, cost, self.post = step(
+                    self.params, opt_state, X, y)
+                self.evals["COST"][1].append(float(cost))
+            self.evals["TIME(s)"][1].append(time.time() - train_start_time)
+            if Xv is not None and yv is not None:
+                self._predict_scaled_and_log(Xv_t, yv_arr)
+            if it % max(max_iter // 10, 1) == 1:
+                self.message("-" * 17, "VALIDATION ITERATION", it, "-" * 17)
+                self._print_current_evals()
+            logger.log(it, **{k: (self.evals[k][1][-1]
+                                  if self.evals[k][1] else None)
+                              for k in ("COST", "NMSE", "MNLP", "RMSE")})
+            obj_val = self.evals[obj][1][-1]
+            improved = obj_val < min_obj_val
+            if improved:
+                if min_obj_val - obj_val < cvrg_tol:
+                    cvrg_iter += 1
+                else:
+                    cvrg_iter = 0
+                min_obj_val = obj_val
+                self.min_obj_ind = len(self.evals["COST"][1]) - 1
+                argmin_params = self.params
+            else:
+                cvrg_iter += 1
+            if it > 30 and cvrg_iter > max_cvrg:
+                break
+            elif cvrg_iter > max_cvrg * 0.5:
+                # Stall annealing: random interpolation toward the best-known
+                # params (SCFGP.py:259-263).
+                randp = self._rng.rand() * cvrg_iter / max_cvrg * 0.5
+                self.params = tree_map(
+                    lambda p, q: (1 - randp) * p + randp * q,
+                    self.params, argmin_params)
+            # End-of-iteration state: all resume needs to replay the rest.
+            self._train_state = {
+                "algo": algo, "obj": obj, "opt_state": opt_state,
+                "params": self.params,  # LIVE params, not the argmin
+                "argmin_params": argmin_params, "iteration": it,
+                "min_obj_val": float(min_obj_val),
+                "cvrg_iter": int(cvrg_iter),
+                "min_obj_ind": int(self.min_obj_ind),
+                "rng_state": self._rng.get_state(),
+                "elapsed": time.time() - train_start_time,
+            }
+            if (checkpoint_path and it - last_ckpt_iter >= checkpoint_every
+                    and improved):
+                self.save(checkpoint_path)
+                last_ckpt_iter = it
+
+        self.params = argmin_params
+        self._stats = None  # params changed: update_data cache is stale
+        self._ensemble = None  # a fresh point fit supersedes any mixture
+        cost, aux = eval_fn(self.params, X, y)
+        self.post = aux.post
+        self.evals["COST"][1].append(float(cost))
+        self.evals["TIME(s)"][1].append(time.time() - train_start_time)
+        if Xv is not None and yv is not None:
+            self._predict_scaled_and_log(Xv_t, yv_arr)
+        self.min_obj_ind = len(self.evals["COST"][1]) - 1
+        logger.close()
+        if checkpoint_path:
+            self.save(checkpoint_path)
+        disp = self.verbose
+        self.verbose = True
+        self.message("-" * 19, "OPTIMIZATION RESULT", "-" * 20)
+        self._print_current_evals()
+        self.message("-" * 60)
+        self.verbose = disp
+
+    def fit(self, X, y, Xv=None, yv=None, **opt_params):
+        """One-call train: set_data + optimize (+ final metrics if Xv given)
+        (``reference: README.md:44-52``)."""
+        self.set_data(X, y)
+        self.optimize(Xv, yv, **opt_params)
+        return self
+
+    def _validation_objective(self, obj, Xv, yv):
+        """``obj_fn(params, post, cost)`` of the fused loop: the metric
+        ``obj`` of the predictions on the validation rows, in original units
+        (``SCFGP.py:278-294``, half-range std rule ``SCFGP.py:281-284``;
+        ``scfgp_tpu/models/model.py:111-147``), all on the device."""
+        Xv_t = self._scale_X(Xv)
+        ys = self._tensor(np.asarray(yv).reshape(-1))
+        # Model dtype throughout, as the JAX package casts the scaler state.
+        y_state = {k: v.to(self.dtype) for k, v in self.y_scaler.state.items()}
+        y_algo, y_compat = self.y_scaler.algo, self.y_scaler.compat_reference
+        basis = self.extra_basis
+        std_ys = torch.std(ys, correction=0)
+        var_ys = torch.var(ys, correction=0)
+
+        def bk(a):
+            return backward_transform_stateless(
+                y_algo, y_state, a[:, None], y_compat).reshape(-1)
+
+        def obj_fn(params, post, cost):
+            with torch.no_grad():
+                mu_f, std_f = predict_f(params, post, Xv_t, basis_fn=basis)
+            mu_y = bk(mu_f)
+            std_y = 0.5 * (bk(mu_f + std_f) - bk(mu_f - std_f))
+            err = mu_y - ys
+            if obj in ("MAE", "NMAE"):
+                mae = torch.mean(torch.abs(err))
+                return mae if obj == "MAE" else mae / std_ys
+            mse = torch.mean(err * err)
+            if obj in ("MSE", "NMSE", "RMSE"):
+                return {"MSE": mse, "NMSE": mse / var_ys,
+                        "RMSE": torch.sqrt(mse)}[obj]
+            mnlp = 0.5 * torch.mean(((ys - mu_y) / std_y) ** 2
+                                    + torch.log(2 * math.pi * std_y * std_y))
+            if obj == "MNLP":
+                return mnlp
+            return (mse / var_ys) / (1 + torch.exp(-mnlp))  # SCORE
+        return obj_fn
+
+    def optimize_fused(self, Xv=None, yv=None, **args):
+        """``optimize()`` with the whole loop on the device
+        (``opt/fused_loop.py``; ``scfgp_tpu/models/model.py:811-960``).
+
+        The semantics of ``optimize()`` for nbatches=1 (early stopping,
+        annealing, best-params restore), with the annealing uniforms drawn
+        from a ``torch.Generator`` on the model's device, seeded from
+        ``self._rng``.  The objective is the training cost, or the
+        validation metric ``obj`` when ``Xv``/``yv`` are given.  Per-
+        iteration history is COST only; the validation metrics get one
+        final entry.
+
+        ``checkpoint_path`` + ``checkpoint_every=k`` pause the loop at
+        k-iteration boundaries and save a checkpoint at each; after a crash,
+        ``load()`` + ``optimize_fused(resume=True)`` (same Xv/yv) replays the
+        uninterrupted run bitwise.  A fused state written by the JAX package
+        carries a threefry key no torch generator can replay, and resuming
+        it raises ``ValueError``.  ``recalibrate=True`` ends with
+        ``recalibrate_dispersion()``."""
+        if args.get("mesh") is not None:
+            raise _not_ported("optimize_fused(mesh=...)",
+                              "item 8 (parallel)")
+        resume = bool(args.get("resume", False))
+        fts = self._fused_train_state if resume else None
+        if resume and not fts:
+            raise ValueError(
+                "optimize_fused(resume=True) requires a prior "
+                "optimize_fused(checkpoint_path=...) or a load()ed fused "
+                "checkpoint (no fused train state found)")
+        obj = args.get("obj", fts["obj"] if resume else "COST").upper()
+        obj = obj if obj in self.evals else "COST"
+        algo = args.get("algo") or (dict(fts["algo"]) if resume
+                                    else dict(DEFAULT_OPT))
+        if not isinstance(algo, dict) or algo.get("algo") is None:
+            algo = dict(DEFAULT_OPT)
+        cvrg_tol = args.get("cvrg_tol", fts["cvrg_tol"] if resume else 1e-4)
+        max_cvrg = args.get("max_cvrg", fts["max_cvrg"] if resume else 18)
+        max_iter = args.get("max_iter", fts["max_iter"] if resume else 500)
+        checkpoint_path = args.get(
+            "checkpoint_path", fts.get("checkpoint_path") if resume else None)
+        checkpoint_every = int(args.get(
+            "checkpoint_every",
+            (fts.get("checkpoint_every") or 0) if resume else 0) or 0)
+
+        for metric in self.evals:
+            self.evals[metric][1] = []
+
+        generator = torch.Generator(device=self.device)
+        generator.manual_seed(self._rng.randint(0, 2**31 - 1))
+        loop_state = None
+        if resume:
+            # Checked before the state moves to the device: a JAX key raises.
+            set_generator_state(generator, fts["state"].key)
+            loop_state = opt_state_from_numpy(fts["state"], self.device)
+        tx = make_optimizer(algo["algo"], algo.get("algo_params"))
+        X, y = _trainable(self.X), _trainable(self.y)
+        basis = self.extra_basis
+
+        def value_and_grad(q):
+            (cost, aux), grads = loss_and_grad(q, X, y, basis_fn=basis)
+            return (cost, aux.post), grads
+
+        eval_loss = self._eval_fn()
+
+        def eval_fn(q):
+            cost, aux = eval_loss(q, X, y)
+            return cost, aux.post
+
+        obj_fn = None
+        if Xv is not None and yv is not None and obj != "COST":
+            obj_fn = self._validation_objective(obj, Xv, yv)
+
+        def run(state, upto):
+            return fused_optimize(value_and_grad, tx, self.params, generator,
+                                  max_iter=max_iter, cvrg_tol=cvrg_tol,
+                                  max_cvrg=max_cvrg, obj_fn=obj_fn,
+                                  eval_fn=eval_fn, state=state, upto=upto)
+
+        def record(res, done):
+            self._fused_train_state = {
+                "state": opt_state_to_numpy(res.state),
+                "obj": obj, "algo": algo, "max_iter": int(max_iter),
+                "cvrg_tol": float(cvrg_tol), "max_cvrg": int(max_cvrg),
+                "checkpoint_path": checkpoint_path,
+                "checkpoint_every": checkpoint_every, "done": bool(done),
+            }
+
+        t0 = time.time()
+        if checkpoint_path and checkpoint_every > 0:
+            it0 = 0 if loop_state is None else int(loop_state.it)
+            while True:
+                boundary = min(
+                    (it0 // checkpoint_every + 1) * checkpoint_every,
+                    max_iter)
+                res = run(loop_state, boundary)
+                loop_state, it0 = res.state, res.num_iters
+                record(res, res.done)
+                self.params = res.params  # checkpoint carries best-so-far
+                self.post = res.post
+                self.save(checkpoint_path)
+                if res.done:
+                    break
+        else:
+            res = run(loop_state, None)
+            record(res, True)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.time() - t0
+        self.params = res.params
+        self._stats = None  # params changed: update_data cache is stale
+        self._ensemble = None  # a fresh point fit supersedes any mixture
+        self.post = res.post
+        if args.get("recalibrate", False):
+            self.recalibrate_dispersion()
+        n = res.num_iters
+        self.evals["COST"][1] = res.cost_history[:n].tolist()
+        self.evals["TIME(s)"][1] = list(
+            np.linspace(wall / max(n, 1), wall, max(n, 1)))
+        if Xv is not None and yv is not None:
+            self._predict_scaled_and_log(self._scale_X(Xv),
+                                         np.asarray(yv).reshape(-1, 1))
+        # Histories differ in length in fused mode (per-iteration COST, one
+        # final entry per validation metric): -1 is the best-params entry
+        # of every series.
+        self.min_obj_ind = -1
+        return self
+
+    def fit_fast(self, X, y, Xv=None, yv=None, **opt_params):
+        """One-call fused training: set_data + optimize_fused."""
+        self.set_data(X, y)
+        self.optimize_fused(Xv, yv, **opt_params)
+        return self
+
+    def fit_ensemble(self, *args, **kwargs):
+        """``scfgp_tpu`` ``SCFGP.fit_ensemble``: not ported yet."""
+        raise _not_ported("fit_ensemble", "item 5 (ensembles)")
+
+    def fit_bayes(self, *args, **kwargs):
+        """``scfgp_tpu`` ``SCFGP.fit_bayes``: not ported yet."""
+        raise _not_ported("fit_bayes", "item 7 (Bayes layer)")
+
     # -- prediction -----------------------------------------------------------
 
     def _predict_scaled_and_log(self, Xs_t, ys):
@@ -270,8 +704,18 @@ class SCFGP:
     def save(self, path: str):
         """Checkpoint params, scalers, posterior and history as plain arrays,
         in the JAX package's format (``scfgp_tpu/models/model.py:1734-1776``).
-        Resume states and posterior draws read by ``load`` are written back
-        unchanged."""
+        Mid-training checkpoints carry the resume state (optimizer
+        accumulators, iteration, host RNG, the fused loop's carry) as NumPy
+        arrays of their own dtypes; posterior draws read by ``load`` are
+        written back unchanged."""
+        train_state = fused_ts = None
+        if self._train_state is not None:
+            train_state = dict(self._train_state)
+            for k in ("opt_state", "params", "argmin_params"):
+                train_state[k] = opt_state_to_numpy(train_state[k])
+        if self._fused_train_state is not None:
+            fused_ts = dict(self._fused_train_state)
+            fused_ts["state"] = opt_state_to_numpy(fused_ts["state"])
         state = {
             "ID": self.ID, "S": self.S, "M": self.M, "N": self.N, "D": self.D,
             "X_scaler": self.X_scaler.to_state_dict(),
@@ -281,8 +725,8 @@ class SCFGP:
             "evals": self.evals,
             "min_obj_ind": self.min_obj_ind,
             "thetas": self.thetas,
-            "train_state": self._train_state,
-            "fused_train_state": self._fused_train_state,
+            "train_state": train_state,
+            "fused_train_state": fused_ts,
             "ensemble": self._ensemble or None,
         }
         from ..utils.checkpoint import save_state
@@ -344,3 +788,12 @@ class SCFGP:
             return series[-1]
         raise AttributeError(
             f"{type(self).__name__!r} object has no attribute {name!r}")
+
+    # -- reporting ------------------------------------------------------------
+
+    def _print_current_evals(self):
+        for metric in sorted(self.evals.keys()):
+            if len(self.evals[metric][1]) < len(self.evals["COST"][1]):
+                continue
+            best = self.evals[metric][1][self.min_obj_ind]
+            self.message(self.NAME, "%7s = %.4e" % (metric, best))

@@ -1,6 +1,7 @@
-"""SCFGP objective, forward only: features, sufficient stats, posterior, NLML.
+"""SCFGP objective and its gradient: features, sufficient stats, posterior,
+NLML.
 
-Port of ``scfgp_tpu/models/objective.py:53-108, 174-191, 199-224, 246-398``,
+Port of ``scfgp_tpu/models/objective.py:53-108, 174-243, 246-403``,
 which re-derives the reference's Theano graph (``reference:
 SCFGP/SCFGP.py:92-148``) as plain functions of tensors.  The same two
 departures from the reference graph hold here:
@@ -10,9 +11,11 @@ departures from the reference graph hold here:
 2. ``Li = L⁻¹`` is materialised once by a triangular solve against the
    identity, so every N-sized quantity is a GEMM against ``Li``.
 
-The feature map runs the CUDA kernel K1 for a tensor on the card and its
-plain PyTorch version for a tensor on the CPU (``ops/phi.py``).  The
-reference quirks stay: the feature scale uses M, not S+M
+The feature map is ``ops/phi.py::FourierFeatures``: the CUDA kernels K1f
+and K1b for a tensor on the card, their plain PyTorch versions for a tensor
+on the CPU.  ``chol_and_inverse`` carries the JAX package's all-GEMM
+backward, and ``loss_and_grad`` is ``jax.value_and_grad(loss_fn,
+has_aux=True)``.  The reference quirks stay: the feature scale uses M, not S+M
 (``SCFGP.py:102``), and the nlml carries ``2 (N - M) a``
 (``SCFGP.py:125-126``).  The JAX package's TPU matrix-unit levers
 (``mm_dtype``, ``mm_precision``) and its ``axis_name`` all-reduce are not
@@ -26,7 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..ops.phi import fourier_features_cuda, fourier_features_ref
+from ..ops.phi import FourierFeatures
 from .params import SCFGPParams, derive_frequencies
 
 EPSILON = 1e-6  # jitter added to sig2_n, reference SCFGP.py:93,105
@@ -71,9 +74,7 @@ def fourier_features(p: SCFGPParams, X: torch.Tensor) -> torch.Tensor:
     ``sig_f * sqrt(2/M)``."""
     d = derive_frequencies(p)
     scale = torch.exp(p.b) * math.sqrt(2.0 / p.M)
-    if X.device.type == "cpu":
-        return fourier_features_ref(X, d.Fcat, d.pcat, scale)
-    return fourier_features_cuda(X, d.Fcat, d.pcat, scale)
+    return FourierFeatures.apply(X, d.Fcat, d.pcat, scale)
 
 
 def sufficient_stats(Phi: torch.Tensor, y: torch.Tensor,
@@ -84,19 +85,50 @@ def sufficient_stats(Phi: torch.Tensor, y: torch.Tensor,
     if w is None:
         return SufficientStats(
             phiTphi=Phi.T @ Phi, phiTy=Phi.T @ y, yTy=torch.sum(y * y),
-            n=torch.tensor(Phi.shape[0], dtype=Phi.dtype, device=Phi.device))
+            n=torch.full((), Phi.shape[0], dtype=Phi.dtype,
+                         device=Phi.device))
     w = w.reshape(-1).to(Phi.dtype)
     return SufficientStats(phiTphi=Phi.T @ (Phi * w[:, None]),
                            phiTy=Phi.T @ (w * y), yTy=torch.sum(w * y * y),
                            n=torch.sum(w))
 
 
+class _CholInverse(torch.autograd.Function):
+    """``(L, Li)`` with the all-GEMM backward of
+    ``scfgp_tpu/models/objective.py:199-243`` (Murray 2016, eq. 8): the
+    forward already holds ``Li``, so every inverse in the backward is a
+    GEMM against it, with ``PHI(S) = tril(S) - diag(S)/2``:
+
+        gL_tot = gL - Liᵀ gLi Liᵀ
+        Abar   = Liᵀ PHI(Lᵀ gL_tot) Li, symmetrised."""
+
+    @staticmethod
+    def forward(ctx, A):
+        # cholesky_ex neither raises nor synchronises with the host; as
+        # JAX's cholesky does, a matrix that is not positive definite gives
+        # NaN, which the training loops treat as a step that did not improve.
+        L, info = torch.linalg.cholesky_ex(A)
+        L = torch.where(info == 0, L, torch.tril(torch.full_like(L, math.nan)))
+        eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+        Li = torch.linalg.solve_triangular(L, eye, upper=False)
+        ctx.save_for_backward(L, Li)
+        return L, Li
+
+    @staticmethod
+    def backward(ctx, gL, gLi):
+        L, Li = ctx.saved_tensors
+        gL_tot = gL - Li.T @ gLi @ Li.T  # an unused output's grad is zeros
+        S = L.T @ gL_tot
+        phi = torch.tril(S) - 0.5 * torch.diag(torch.diagonal(S))
+        Abar = Li.T @ phi @ Li
+        return 0.5 * (Abar + Abar.T)
+
+
 def chol_and_inverse(A: torch.Tensor):
     """``(L, Li) = (chol(A), L⁻¹)``: Cholesky, then a triangular solve
-    against the identity, as the JAX package leaves both to XLA."""
-    L = torch.linalg.cholesky(A)
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
-    return L, torch.linalg.solve_triangular(L, eye, upper=False)
+    against the identity, as the JAX package leaves both to XLA;
+    differentiable through ``_CholInverse``'s all-GEMM backward."""
+    return _CholInverse.apply(A)
 
 
 def solve_posterior(stats: SufficientStats, sig2_n: torch.Tensor,
@@ -195,3 +227,26 @@ def predict_f(p: SCFGPParams, post: Posterior, Xs: torch.Tensor,
     """Predictive mean and std of the scaled target (``SCFGP.py:138-148``):
     ``mu* = Phi* alpha``, ``std* = sqrt(noise (1 + rowsum((Phi* Liᵀ)²)))``."""
     return predict_from_phi(p, post, feature_block(p, Xs, basis_fn))
+
+
+def _leaf(t: torch.Tensor) -> torch.Tensor:
+    """A fresh leaf of ``t`` to differentiate against (a tensor made under
+    ``inference_mode``, as serving makes them, is copied first)."""
+    t = t.detach()
+    return (t.clone() if t.is_inference() else t).requires_grad_()
+
+
+def loss_and_grad(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
+                  w: Optional[torch.Tensor] = None, basis_fn=None):
+    """``((cost, LossAux), grads)`` with ``grads`` an ``SCFGPParams`` of
+    d cost / d p: ``jax.value_and_grad(loss_fn, has_aux=True)``
+    (``scfgp_tpu/models/objective.py:403``).  The gradient is taken by
+    ``torch.autograd.grad`` on leaf copies of the params, so nothing
+    accumulates in ``.grad``; every output is detached."""
+    leaves = SCFGPParams(*map(_leaf, p))
+    with torch.enable_grad():
+        cost, aux = loss_fn(leaves, X, y, w=w, basis_fn=basis_fn)
+        grads = torch.autograd.grad(cost, leaves)
+    aux = LossAux(post=Posterior(*(t.detach() for t in aux.post)),
+                  nlml=aux.nlml.detach(), penalty=aux.penalty.detach())
+    return (cost.detach(), aux), SCFGPParams(*grads)

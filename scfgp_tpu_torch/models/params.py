@@ -9,7 +9,9 @@ layout, so one θ drives both packages and the golden NumPy harness:
   ``concat([a, b, c, l_F.ravel(D*S), r_F.ravel(M*S), l_phase(S), phase(M)])``
 
 ``params_from_numpy``/``posterior_from_numpy`` carry the JAX package's
-arrays (as NumPy, e.g. from a checkpoint) onto a torch device and dtype.
+arrays (as NumPy, e.g. from a checkpoint) onto a torch device and dtype;
+``opt_state_from_numpy``/``opt_state_to_numpy`` carry training-resume state
+(optimizer accumulators, fused-loop carries) across with every dtype kept.
 """
 
 from __future__ import annotations
@@ -118,6 +120,35 @@ def posterior_from_numpy(arrays, dtype=torch.float32, device="cpu"):
     log_diag_L``, as NumPy) -> the port's ``Posterior``."""
     from .objective import Posterior
     return _to_tensors(Posterior, arrays, dtype, device)
+
+
+def opt_state_from_numpy(state, device="cpu"):
+    """A training-resume tree as ``load`` decodes it (the JAX package's
+    ``AdamState``/``AdamaxState``/``AdadeltaState``/``MomentumState``,
+    ``FusedLoopState`` or ``SCFGPParams``, with NumPy leaves) -> the same
+    tree of tensors on ``device``.  Every leaf keeps its dtype:
+    ``AdamState.t`` is float32 even beside float64 params, and a cast would
+    change ``beta**t`` and with it the replayed trajectory.  Tensor leaves
+    are moved, not cast."""
+    from ..opt.optimizers import tree_map
+
+    def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
+        return torch.tensor(np.asarray(a), device=device)
+    return tree_map(leaf, state)
+
+
+def opt_state_to_numpy(state):
+    """The reverse of ``opt_state_from_numpy``, for ``save``: every leaf as
+    a NumPy array of its own dtype, readable by the JAX package."""
+    from ..opt.optimizers import tree_map
+
+    def leaf(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().cpu().numpy()
+        return np.asarray(a)
+    return tree_map(leaf, state)
 
 
 class DerivedFrequencies(NamedTuple):

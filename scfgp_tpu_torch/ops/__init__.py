@@ -1,1 +1,2 @@
-from .phi import fourier_features_cuda, fourier_features_ref
+from .phi import (FourierFeatures, fourier_features_bwd_cuda,
+                  fourier_features_cuda, fourier_features_ref, phi_bwd_ref)

@@ -1,21 +1,30 @@
-"""K1: the fused low-rank trig Fourier feature map, forward.
+"""K1: the fused low-rank trig Fourier feature map, forward and backward.
 
 ``Phi = s * [cos(X @ Fcat + pcat) | sin(X @ Fcat + pcat)]`` — the
 reference's feature construction (``reference: SCFGP/SCFGP.py:99-102``).
 
-Two versions of one function:
+Two versions of each direction:
 
   * ``fourier_features_cuda`` launches the hand-written Hopper kernel
     ``csrc/phi_fwd.cu``, the port of the Pallas kernel
     ``scfgp_tpu/ops/phi.py::_fwd_kernel``: one launch, T never leaves
     registers, cos and sin stored straight into one contiguous (N, 2K)
-    array.  float32 only.  Its launch count is
-    ``fourier_features_cuda.launches``.
-  * ``fourier_features_ref`` is the plain PyTorch version: the CPU path and
-    the kernel's reference on the card.
+    array.  ``fourier_features_bwd_cuda`` launches ``csrc/phi_bwd.cu``, the
+    port of ``_bwd_kernel``: T recomputed, dT never stored, and the sums
+    over rows taken in two deterministic stages, so the gradient is bitwise
+    repeatable.  float32 only.  Their launch counts are
+    ``fourier_features_cuda.launches`` and
+    ``fourier_features_bwd_cuda.launches``.
+  * ``fourier_features_ref`` and ``phi_bwd_ref`` are the plain PyTorch
+    versions: the CPU path and the kernels' references on the card.
 
-The backward kernel (``scfgp_tpu/ops/phi.py::_bwd_kernel``) is not ported
-yet, so the CUDA wrapper refuses inputs that require grad.
+``FourierFeatures`` joins the two directions into one
+``torch.autograd.Function`` (the JAX package's ``custom_vjp``,
+``scfgp_tpu/ops/phi.py:168-187``): it saves X, Fcat, pcat and s, not Phi,
+and gives X, which is data, no gradient.  A CUDA tensor goes to the
+kernels, a CPU tensor to the plain versions; there is no fallback.  The raw
+kernel wrappers refuse tensors that require grad: differentiate through
+``FourierFeatures``.
 """
 
 from __future__ import annotations
@@ -26,14 +35,22 @@ import torch
 
 from .build import load_library
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "phi_fwd": {"scfgp_phi_fwd_f32": ([_VOID] * 5 + [_INT] * 3 + [_VOID],
+                                      ctypes.c_int)},
+    "phi_bwd": {"scfgp_phi_bwd_f32": ([_VOID] * 7 + [_INT] * 3 + [_VOID],
+                                      ctypes.c_int),
+                "scfgp_phi_bwd_workspace": ([_INT] * 3, ctypes.c_size_t)},
+}
 
 
-def _library() -> ctypes.CDLL:
-    lib = load_library("phi_fwd")
-    if lib.scfgp_phi_fwd_f32.argtypes is None:
-        lib.scfgp_phi_fwd_f32.argtypes = _ARGTYPES
-        lib.scfgp_phi_fwd_f32.restype = ctypes.c_int
+def _library(name: str) -> ctypes.CDLL:
+    lib = load_library(name)
+    if lib.scfgp_cuda_error_string.restype is not ctypes.c_char_p:
+        for fn, (args, res) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = res
         lib.scfgp_cuda_error_string.argtypes = [ctypes.c_int]
         lib.scfgp_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -47,35 +64,98 @@ def fourier_features_ref(X: torch.Tensor, Fcat: torch.Tensor,
     return scale * torch.cat([torch.cos(T), torch.sin(T)], dim=1)
 
 
-def _check(X, Fcat, pcat, scale):
+def phi_bwd_ref(X: torch.Tensor, Fcat: torch.Tensor, pcat: torch.Tensor,
+                scale: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch backward of the feature map: ``(dFcat, dpcat, ds)``
+    from the cotangent ``g`` (N, 2K), the formulas of
+    ``scfgp_tpu/ops/phi.py:83-95``."""
+    k = Fcat.shape[1]
+    T = X @ Fcat + pcat
+    c, sn = torch.cos(T), torch.sin(T)
+    g_cos, g_sin = g[:, :k], g[:, k:]
+    dT = scale * (g_sin * c - g_cos * sn)
+    return X.T @ dT, dT.sum(dim=0), torch.sum(g_cos * c + g_sin * sn)
+
+
+def _check(where, X, Fcat, pcat, scale, g=None):
     tensors = {"X": X, "Fcat": Fcat, "pcat": pcat, "scale": scale}
+    if g is not None:
+        tensors["g"] = g
     for name, t in tensors.items():
         if t.device.type != "cuda" or t.device != X.device:
-            raise ValueError(f"fourier_features_cuda: {name} is on "
-                             f"{t.device}, expected the CUDA device of X "
-                             f"({X.device})")
+            raise ValueError(f"{where}: {name} is on {t.device}, expected "
+                             f"the CUDA device of X ({X.device})")
         if t.dtype != torch.float32:
-            raise TypeError(f"fourier_features_cuda: {name} is {t.dtype}; "
-                            "the kernel takes float32 only")
+            raise TypeError(f"{where}: {name} is {t.dtype}; the kernel "
+                            "takes float32 only")
         if not t.is_contiguous():
-            raise ValueError(f"fourier_features_cuda: {name} is not "
-                             "contiguous")
-        if t.requires_grad:
-            raise RuntimeError(f"fourier_features_cuda: {name} requires "
-                               "grad, and the backward kernel is not "
-                               "ported yet")
+            raise ValueError(f"{where}: {name} is not contiguous")
     if X.dim() != 2 or Fcat.dim() != 2 or pcat.dim() != 1:
-        raise ValueError("fourier_features_cuda: expected X (N, D), "
-                         f"Fcat (D, K), pcat (K,); got {tuple(X.shape)}, "
-                         f"{tuple(Fcat.shape)}, {tuple(pcat.shape)}")
+        raise ValueError(f"{where}: expected X (N, D), Fcat (D, K), pcat "
+                         f"(K,); got {tuple(X.shape)}, {tuple(Fcat.shape)}, "
+                         f"{tuple(pcat.shape)}")
     if Fcat.shape[0] != X.shape[1] or pcat.shape[0] != Fcat.shape[1]:
-        raise ValueError("fourier_features_cuda: shapes disagree: X "
-                         f"{tuple(X.shape)}, Fcat {tuple(Fcat.shape)}, "
-                         f"pcat {tuple(pcat.shape)}")
+        raise ValueError(f"{where}: shapes disagree: X {tuple(X.shape)}, "
+                         f"Fcat {tuple(Fcat.shape)}, pcat {tuple(pcat.shape)}")
+    if g is not None and tuple(g.shape) != (X.shape[0], 2 * Fcat.shape[1]):
+        raise ValueError(f"{where}: g is {tuple(g.shape)}, expected "
+                         f"{(X.shape[0], 2 * Fcat.shape[1])}")
     if scale.numel() != 1:
-        raise ValueError("fourier_features_cuda: scale must hold one value")
-    if max(X.shape[0], X.shape[1], Fcat.shape[1]) >= 2 ** 31:
-        raise ValueError("fourier_features_cuda: a dimension exceeds int32")
+        raise ValueError(f"{where}: scale must hold one value")
+    if max(X.shape[0], X.shape[1], 2 * Fcat.shape[1]) >= 2 ** 31:
+        raise ValueError(f"{where}: a dimension exceeds int32")
+
+
+def _refuse_grad(where, *tensors):
+    if any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{where}: an input requires grad; differentiate "
+                           "through FourierFeatures, not the raw kernel")
+
+
+def _raise_on(lib, rc, name):
+    if rc != 0:
+        msg = lib.scfgp_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cuda error {rc})")
+
+
+def _phi_fwd(X, Fcat, pcat, scale):
+    _check("fourier_features_cuda", X, Fcat, pcat, scale)
+    n, d = X.shape
+    k = Fcat.shape[1]
+    out = torch.empty((n, 2 * k), dtype=torch.float32, device=X.device)
+    if n == 0 or k == 0:
+        return out
+    lib = _library("phi_fwd")
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = lib.scfgp_phi_fwd_f32(X.data_ptr(), Fcat.data_ptr(),
+                                   pcat.data_ptr(), scale.data_ptr(),
+                                   out.data_ptr(), n, d, k, stream)
+    _raise_on(lib, rc, "phi_fwd")
+    fourier_features_cuda.launches += 1
+    return out
+
+
+def _phi_bwd(X, Fcat, pcat, scale, g):
+    _check("fourier_features_bwd_cuda", X, Fcat, pcat, scale, g)
+    n, d = X.shape
+    k = Fcat.shape[1]
+    launch = n > 0 and k > 0
+    out = (torch.empty if launch else torch.zeros)(
+        d * k + k + 1, dtype=torch.float32, device=X.device)
+    if launch:
+        lib = _library("phi_bwd")
+        part = torch.empty(lib.scfgp_phi_bwd_workspace(n, d, k),
+                           dtype=torch.float32, device=X.device)
+        with torch.cuda.device(X.device):
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            rc = lib.scfgp_phi_bwd_f32(
+                X.data_ptr(), Fcat.data_ptr(), pcat.data_ptr(),
+                scale.data_ptr(), g.data_ptr(), part.data_ptr(),
+                out.data_ptr(), n, d, k, stream)
+        _raise_on(lib, rc, "phi_bwd")
+        fourier_features_bwd_cuda.launches += 1
+    return out[:d * k].view(d, k), out[d * k:d * k + k], out[d * k + k]
 
 
 def fourier_features_cuda(X: torch.Tensor, Fcat: torch.Tensor,
@@ -85,24 +165,41 @@ def fourier_features_cuda(X: torch.Tensor, Fcat: torch.Tensor,
 
     ``scale`` is a one-element device tensor, read by the kernel through
     its pointer (no host synchronisation).  Raises on anything the kernel
-    does not take, and if the launch fails."""
-    _check(X, Fcat, pcat, scale)
-    n, d = X.shape
-    k = Fcat.shape[1]
-    out = torch.empty((n, 2 * k), dtype=torch.float32, device=X.device)
-    if n == 0 or k == 0:
-        return out
-    lib = _library()
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.scfgp_phi_fwd_f32(X.data_ptr(), Fcat.data_ptr(),
-                                   pcat.data_ptr(), scale.data_ptr(),
-                                   out.data_ptr(), n, d, k, stream)
-    if rc != 0:
-        msg = lib.scfgp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"phi_fwd launch failed: {msg} (cuda error {rc})")
-    fourier_features_cuda.launches += 1
-    return out
+    does not take, on inputs that require grad, and if the launch fails."""
+    _refuse_grad("fourier_features_cuda", X, Fcat, pcat, scale)
+    return _phi_fwd(X, Fcat, pcat, scale)
+
+
+def fourier_features_bwd_cuda(X: torch.Tensor, Fcat: torch.Tensor,
+                              pcat: torch.Tensor, scale: torch.Tensor,
+                              g: torch.Tensor):
+    """``(dFcat (D, K), dpcat (K,), ds ())`` by the CUDA kernel from the
+    cotangent ``g`` (N, 2K) of the feature map, on PyTorch's current
+    stream; bitwise repeatable.  Raises as ``fourier_features_cuda`` does."""
+    _refuse_grad("fourier_features_bwd_cuda", X, Fcat, pcat, scale, g)
+    return _phi_bwd(X, Fcat, pcat, scale, g)
 
 
 fourier_features_cuda.launches = 0
+fourier_features_bwd_cuda.launches = 0
+
+
+class FourierFeatures(torch.autograd.Function):
+    """Feature map differentiable in (Fcat, pcat, scale): K1f forward, K1b
+    backward on the card; the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, X, Fcat, pcat, scale):
+        ctx.save_for_backward(X, Fcat, pcat, scale)
+        if X.device.type == "cpu":
+            return fourier_features_ref(X, Fcat, pcat, scale)
+        return _phi_fwd(X, Fcat, pcat, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        X, Fcat, pcat, scale = ctx.saved_tensors
+        if X.device.type == "cpu":
+            dF, dp, ds = phi_bwd_ref(X, Fcat, pcat, scale, g)
+        else:
+            dF, dp, ds = _phi_bwd(X, Fcat, pcat, scale, g.contiguous())
+        return None, dF, dp, ds.reshape(scale.shape)
