@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on one NVIDIA card.
+"""Drive the PyTorch port's serving, training and streaming paths on one card.
 
     python3 chip_smoke.py
 
@@ -7,14 +7,19 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 1. card and precision: name and power limit (nvidia-smi), torch and CUDA
    versions; float32 matrix products must not run in TF32;
-2. build the CUDA kernels K1f (csrc/phi_fwd.cu) and K1b (csrc/phi_bwd.cu)
-   from this checkout, one nvcc each, started together;
+2. build the CUDA kernels K1f (csrc/phi_fwd.cu), K1b (csrc/phi_bwd.cu),
+   K2f (csrc/gram_fwd.cu) and K2b (csrc/gram_bwd.cu) from this checkout,
+   one nvcc each, started together;
 3. K1f against its plain PyTorch version on the card at the slice's shapes,
    with both times (CUDA events, median of repeats): device time (``ms``)
    and time per call with the host's share (``call_ms``);
 3b. K1b the same way, against ``phi_bwd_ref`` and against autograd through
    the plain feature map, with a stated error bound; the same call twice
    must give bitwise equal gradients;
+3c, 3d. K2f and K2b the same way, against ``sufficient_stats_ref`` and
+   ``gram_bwd_ref``, with error bounds from a rounding model
+   (k2f_tolerance, k2b_tolerance), bitwise repeatable, at kin8nm, bench,
+   ragged, the streaming block and zero-weight rows;
 4. serve the kin8nm model trained by the JAX package
    (experiments/results/kin8nm/best_model.pkl): load, then predict request
    batches of 1, 17, 256 rows and the full 1639-row split;
@@ -36,11 +41,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    checkpoint segments and resumed after a simulated crash, which must equal
    the one-shot run bitwise;
 8. fit: the host loop, 40 iterations, against a run checkpointed at 20 and
-   resumed by a fresh model from the file, which must equal it bitwise.
+   resumed by a fresh model from the file, which must equal it bitwise;
+9. streaming: ``loss_fn_streaming`` at N=1e6, D=256, S=56, M=200, block
+   16384 (experiments/tpu_streaming_1m.py, uncut): the kernel route against
+   the GEMM route and the dense path, five adam steps on each route, and
+   the peak memory of a step (see ``streaming``).
 
-The launch counts of K1f and K1b are set to 0 just before each path (the
-serving path, phases 4-5, and each training phase) and read just after;
-every training phase must launch both.  The line before the last is a JSON
+The launch counts of the four kernels are set to 0 just before each path
+(the serving path, phases 4-5, each training phase, and the streaming
+kernel route) and read just after; every training phase must launch K1f
+and K1b, the streaming path all four.  The line before the last is a JSON
 object with each kernel's launches, error and times; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 there is no CUDA device or no package beside it.
@@ -99,6 +109,37 @@ FIT_COST_TOL = 1e-4
 FIT_NMSE_TOL = 0.10
 # The factor c of the K1b error bound (k1b_tolerance).
 K1B_C = 4.0
+# The factor on the root-sum-square term of the K2 error bounds
+# (k2f_tolerance, k2b_tolerance), as K1B_C.
+K2_C = 4.0
+
+# Shapes (N, D, K) of phases 3c and 3d: kin8nm, bench, ragged ones, the
+# streaming block of phase 9 (K = S + M = 256, D = 256), and one whose
+# weights are 0 on a third of the rows (the zero-weight padding rows of the
+# JAX package's streaming blocks).
+K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
+             ("ragged-1", 1, 3, 37, False), ("ragged-777", 777, 3, 37, False),
+             ("block", 16384, 256, 256, False),
+             ("weighted", 5000, 16, 100, True)]
+# Phase 9: the defaults of experiments/tpu_streaming_1m.py:32-33, uncut.
+STREAM = dict(N=1_000_000, D=256, S=56, M=200, block=16384, steps=5)
+# The kernel route, the GEMM route and the dense path each sum the 1e6 rows
+# of the statistics in float32 in another order: by the probabilistic
+# rounding model (Higham and Mary 2019) each statistic is off by at most
+# about u sqrt(N) ~ 6e-5 of the sum of its terms' magnitudes, typically far
+# less.  The cost is held at that relative bound; the gradient passes
+# through the Cholesky backward, which amplifies by cond(A) (printed), and
+# is held at 1e-3 of each leaf's largest entry (phases, pure gauge: of the
+# largest entry of any leaf).
+STREAM_COST_TOL = 6e-5
+STREAM_GRAD_TOL = 1e-3
+# A streaming step keeps O(block) tensors: Phi of one block, Phi Li^T, their
+# squares and gradients, and the kernels' workspaces, each at most about
+# block x 2K float32 (32 MiB at the streaming block).  Held at 16 of those
+# plus 64 MiB for the 2K x 2K matrices, over what was allocated before the
+# step (X and y included), whatever N.
+STREAM_PEAK_BLOCKS = 16
+STREAM_PEAK_EXTRA = 64 << 20
 
 # The reference kin8nm protocol (experiments/kin8nm.py:35-47 through
 # utils/experiment.py:109-111): full rank S=D=8, M=269 (2K=554).
@@ -200,6 +241,90 @@ def k1b_tolerance(X, F, p, s, g):
             cu * float(terms.sum() + torch.sqrt((e * e).sum())))
 
 
+def _t_rounding(X, F, p):
+    """The float32 rounding of T = X F + p and of its cos and sin, in units
+    of u, per (row, feature): sqrt(D + 2) (1 + |T|abs), as in
+    k1b_tolerance."""
+    return math.sqrt(X.shape[1] + 2) * (1.0 + X.abs() @ F.abs() + p.abs())
+
+
+def k2f_tolerance(X, F, p, s, y, w):
+    """Error bounds of K2f's (phiTphi, phiTy, yTy, n) against the plain
+    float32 version.  Each version rounds Phi (an entry is off by about
+    u e, e = |s| E, E of _t_rounding, independently across rows), then sums
+    over the N rows in its own order: by the probabilistic model of Higham
+    and Mary (2019), off by at most about u sqrt(N) times the sum of the
+    terms' magnitudes.  With c = K2_C on the root-sum-square term:
+
+      phiTphi: u max_ij [sqrt(N) sum_r |w_r Phi_ri Phi_rj|
+                         + c sqrt(sum_r w_r^2 (e_ri |Phi_rj| + |Phi_ri| e_rj)^2)]
+      phiTy:   u max_j  [sqrt(N) sum_r |w_r y_r Phi_rj|
+                         + c sqrt(sum_r (w_r y_r e_rj)^2)]
+      yTy:     u sqrt(N) sum_r |w_r| y_r^2;   n: u sqrt(N) sum_r |w_r|
+    """
+    X, F, p, s, y = (t.double() for t in (X, F, p, s, y))
+    w = torch.ones_like(y) if w is None else w.double()
+    T = X @ F + p
+    a = (s * torch.cat([torch.cos(T), torch.sin(T)], dim=1)).abs()
+    e = s.abs() * _t_rounding(X, F, p)
+    e = torch.cat([e, e], dim=1)
+    rn = math.sqrt(X.shape[0])
+    w2 = (w * w)[:, None]
+    m1 = (w2 * e * e).T @ (a * a)
+    rss = m1 + m1.T + 2.0 * (w2 * e * a).T @ (e * a)
+    order = (w.abs()[:, None] * a).T @ a
+    wy = (w * y).abs()[:, None]
+    return (U32 * float((rn * order + K2_C * rss.sqrt()).max()),
+            U32 * float((rn * (wy * a).sum(dim=0)
+                         + K2_C * ((wy * e) ** 2).sum(dim=0).sqrt()).max()),
+            U32 * rn * float((w.abs() * y * y).sum()),
+            U32 * rn * float(w.abs().sum()))
+
+
+def k2b_tolerance(X, F, p, s, y, w, cbar, pbar):
+    """Error bounds of K2b's (dFcat, dpcat, ds) against the plain float32
+    version, under the model of k2f_tolerance.  An entry of
+    G = w (s phi Abar + y pbar) is off by about u eG,
+    eG = |w| (|s| (sqrt(2K) |phi| + E) |Abar| + |y pbar|) (the 2K-term
+    product in another order, and phi's own rounding); an entry of
+    dT = s (G_sin cos T - G_cos sin T) by u edT,
+    edT = |s| ((|G_cos| + |G_sin|) E + eG_cos + eG_sin), independently
+    across rows.  With c = K2_C:
+
+      dFcat: u max_ij [sqrt(N) sum_r |X_ri dT_rj|
+                       + c sqrt(sum_r (|X_ri| edT_rj)^2)]
+      dpcat: u max_j  [sqrt(N) sum_r |dT_rj| + c sqrt(sum_r edT_rj^2)]
+      ds:    u [sqrt(N) sum |G_cos cos T| + |G_sin sin T|
+                + c sqrt(sum_r (sum_j (|G_cos| + |G_sin|) E + eG)^2)]
+    """
+    X, F, p, s, y, cbar, pbar = (t.double()
+                                 for t in (X, F, p, s, y, cbar, pbar))
+    w = torch.ones_like(y) if w is None else w.double()
+    k = F.shape[1]
+    T = X @ F + p
+    c, sn = torch.cos(T), torch.sin(T)
+    phi = torch.cat([c, sn], dim=1)
+    E = _t_rounding(X, F, p)
+    A = cbar + cbar.T
+    G = w[:, None] * (s * phi @ A + y[:, None] * pbar)
+    eG = w.abs()[:, None] * (
+        s.abs() * (math.sqrt(2 * k) * phi.abs() + torch.cat([E, E], dim=1))
+        @ A.abs() + (y[:, None] * pbar).abs())
+    g_abs = G[:, :k].abs() + G[:, k:].abs()
+    e_ds = g_abs * E + eG[:, :k] + eG[:, k:]
+    edT = s.abs() * e_ds
+    dT = (s * (G[:, k:] * c - G[:, :k] * sn)).abs()
+    ax = X.abs().T
+    rn = math.sqrt(X.shape[0])
+    terms = (G[:, :k] * c).abs() + (G[:, k:] * sn).abs()
+    return (U32 * float((rn * (ax @ dT)
+                         + K2_C * ((ax * ax) @ edT ** 2).sqrt()).max()),
+            U32 * float((rn * dT.sum(dim=0)
+                         + K2_C * (edT ** 2).sum(dim=0).sqrt()).max()),
+            U32 * float(rn * terms.sum()
+                        + K2_C * (e_ds.sum(dim=1) ** 2).sum().sqrt()))
+
+
 def plain_fourier_features(params, X):
     """The feature map by its plain PyTorch version, differentiable by
     autograd: the plain path the kernel path is held against."""
@@ -226,8 +351,8 @@ def plain_feature_map():
 class Launches:
     """The kernels' launch counts, set to 0 before a path and read after."""
 
-    def __init__(self, fwd, bwd):
-        self.kernels = {"phi_fwd": fwd, "phi_bwd": bwd}
+    def __init__(self, **kernels):
+        self.kernels = kernels
         self.by_path = {}
 
     def start(self):
@@ -243,6 +368,9 @@ class Launches:
 
     def total(self, name):
         return sum(c[name] for c in self.by_path.values())
+
+    def of(self, name):
+        return {p: c[name] for p, c in self.by_path.items()}
 
 
 def params_equal(a, b):
@@ -277,6 +405,143 @@ def device_busy(fn, steps=10):
         e.key[:60]: e.self_device_time_total / 1e3 / steps for e in top}
 
 
+def grad_errors(g, ref):
+    """Each gradient leaf's largest difference from ``ref``, relative to the
+    leaf's largest entry; phase leaves, pure gauge (about zero), relative to
+    the largest entry of any leaf."""
+    top = max(float(t.abs().max()) for t in ref)
+    errs = {}
+    for field, a, b in zip(ref._fields, g, ref):
+        den = top if "phase" in field else float(b.abs().max())
+        errs[field] = float((a - b).abs().max()) / max(den, 1e-30)
+    return errs
+
+
+def streaming(dev, launches):
+    """Phase 9, the streaming objective at the configuration of
+    experiments/tpu_streaming_1m.py (N=1e6, D=256, S=56, M=200, block
+    16384, adam lr 0.01), from random params made from SEED:
+
+    (a) cost and gradient through ``loss_fn_streaming`` on the kernel route
+        (K2f, K2b in pass 1; K1f, K1b in pass 2), the path whose launches are
+        counted, against the GEMM route and the dense ``loss_and_grad``;
+    (b) five loss + grad + adam steps on each route, in turns, with ms per
+        step, Mrows/s, the first and final cost, and the device-busy share;
+    (c) the peak device memory of one step on each route and of the dense
+        step, over what was allocated before it."""
+    from scfgp_tpu_torch.data.datasets import synthetic_large
+    from scfgp_tpu_torch.models.objective import loss_and_grad
+    from scfgp_tpu_torch.models.params import SCFGPParams, init_params
+    from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
+    from scfgp_tpu_torch.opt.optimizers import make_optimizer, tree_add
+
+    cfg = STREAM
+    t0 = time.perf_counter()
+    X_np, y_np = synthetic_large(n=cfg["N"], d=cfg["D"], seed=SEED)
+    X, y = torch.as_tensor(X_np).to(dev), torch.as_tensor(y_np).to(dev)
+    del X_np, y_np
+    torch.cuda.synchronize()
+    t_data = time.perf_counter() - t0
+    p0 = SCFGPParams(*[t.to(dev) for t in init_params(
+        torch.Generator().manual_seed(SEED), cfg["D"], cfg["S"], cfg["M"])])
+    k2 = 2 * (cfg["S"] + cfg["M"])
+    tx = make_optimizer("adam", {"learning_rate": 0.01})
+
+    def grad(route, p=p0):
+        if route == "dense":
+            return loss_and_grad(p, X, y)
+        return loss_and_grad_streaming(p, X, y, block_size=cfg["block"],
+                                       stats_impl=route)
+
+    def step(route, p, state):
+        (cost, _), g = grad(route, p)
+        delta, state = tx.update(g, state, p)
+        return tree_add(p, delta), state, cost
+
+    # (a) the kernel route against the GEMM route and the dense path
+    launches.start()
+    (cost, aux), g = grad("kernel")
+    torch.cuda.synchronize()
+    counts = launches.read("streaming", need=tuple(launches.kernels))
+    out = {"kernel": (cost, g)}
+    for route in ("gemm", "dense"):
+        (c, _), gr = grad(route)
+        out[route] = (c, gr)
+    torch.cuda.synchronize()
+    agree = {}
+    for a, b in (("kernel", "gemm"), ("kernel", "dense"), ("gemm", "dense")):
+        e_cost = abs(float(out[a][0]) - float(out[b][0])) / abs(
+            float(out[b][0]))
+        e_grad = grad_errors(out[a][1], out[b][1])
+        agree[f"{a}_vs_{b}"] = dict(cost_rel_err=e_cost, grad_rel_err=e_grad)
+    L = aux.post.L.double()
+    cond = float(torch.linalg.cond(L @ L.T))
+    say("streaming_agreement", n=cfg["N"], d=cfg["D"], s=cfg["S"],
+        m=cfg["M"], block=cfg["block"], data_s=t_data, cost=float(cost),
+        cond_A=cond, launches=counts, **agree)
+    for route, (c, gr) in out.items():
+        check(math.isfinite(float(c))
+              and all(bool(torch.isfinite(t).all()) for t in gr),
+              f"streaming: {route} cost or gradient not finite")
+    for pair, e in agree.items():
+        check(e["cost_rel_err"] <= STREAM_COST_TOL
+              and max(e["grad_rel_err"].values()) <= STREAM_GRAD_TOL,
+              f"streaming: {pair} differ: {e}")
+    del out, g
+
+    # (b) five steps on each route, in turns
+    def run(route):
+        p, state, costs = p0, tx.init(p0), []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(cfg["steps"]):
+            p, state, c = step(route, p, state)
+            costs.append(c)
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t) * 1e3 / cfg["steps"],
+                [float(c) for c in costs])
+
+    runs = {"kernel": [], "gemm": []}
+    for order in (("kernel", "gemm"), ("gemm", "kernel")):
+        for route in order:
+            runs[route].append(run(route))
+    for route, rs in runs.items():
+        state = tx.init(p0)
+        dev_ms, wall_ms, busy, top = device_busy(
+            lambda: step(route, p0, state), steps=2)
+        ms = statistics.median(r[0] for r in rs)
+        costs = rs[0][1]
+        say("streaming_steps", route=route, steps=cfg["steps"],
+            ms_per_step=ms, ms_per_step_turns=[r[0] for r in rs],
+            mrows_per_s=cfg["N"] / ms / 1e3, first_cost=costs[0],
+            final_cost=costs[-1], costs=costs,
+            repeat_bitwise=rs[0][1] == rs[1][1], device_ms=dev_ms,
+            profiled_wall_ms=wall_ms, busy=busy, busy_unprofiled=dev_ms / ms,
+            top_kernels_ms=top)
+        check(all(math.isfinite(c) for r in rs for c in r[1]),
+              f"streaming: a {route} cost is not finite")
+        check(costs[-1] < costs[0],
+              f"streaming: the {route} cost did not fall: {costs}")
+
+    # (c) peak memory of one step, over what was allocated before it
+    def peak(route):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step(route, p0, tx.init(p0))
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - base
+
+    peaks = {route: peak(route) for route in ("kernel", "gemm", "dense")}
+    bound = STREAM_PEAK_BLOCKS * cfg["block"] * k2 * 4 + STREAM_PEAK_EXTRA
+    say("streaming_memory", peak_bytes_over_resident=peaks, bound=bound,
+        x_y_bytes=X.nbytes + y.nbytes)
+    for route in ("kernel", "gemm"):
+        check(peaks[route] <= bound, f"streaming: the {route} route's peak "
+              f"{peaks[route]} exceeds the block bound {bound}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -290,6 +555,10 @@ def main():
         solve_posterior, sufficient_stats)
     from scfgp_tpu_torch.models.params import init_params
     from scfgp_tpu_torch.ops import build
+    from scfgp_tpu_torch.ops.gram import (gram_bwd_ref,
+                                          sufficient_stats_bwd_cuda,
+                                          sufficient_stats_cuda,
+                                          sufficient_stats_ref)
     from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
                                          fourier_features_cuda,
                                          fourier_features_ref, phi_bwd_ref)
@@ -310,13 +579,11 @@ def main():
     check(tf32 is False, "TF32 float32 matmul is on: posterior GEMMs change")
     dev = torch.device("cuda")
 
-    # 2. build K1f and K1b, one nvcc each, started together ---------------
+    # 2. build K1f, K1b, K2f and K2b, one nvcc each, started together -----
     t0 = time.perf_counter()
-    names = ("phi_fwd", "phi_bwd")
+    names = ("phi_fwd", "phi_bwd", "gram_fwd", "gram_bwd")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
-    for name in names:
-        build.load_library(name)
     ptxas = {name: [ln.strip() for ln in so.with_suffix(".log").read_text()
                     .splitlines() if "registers" in ln or "spill" in ln]
              for name, so in libs.items()}
@@ -381,6 +648,51 @@ def main():
               f"K1b disagrees with the plain version at {name}: "
               f"{err}, {err_auto} > {tol}")
 
+    # 3c, 3d. K2f and K2b against their plain versions -----------------------
+    def k2_inputs(n, d, k, weighted):
+        X, F, p, y, cbar, pbar = (
+            torch.as_tensor(a, dtype=torch.float32, device=dev)
+            for a in (rng.rand(n, d), 3.0 * rng.randn(d, k),
+                      rng.uniform(0, 2 * np.pi, k), rng.randn(n),
+                      rng.randn(2 * k, 2 * k), rng.randn(2 * k)))
+        w = (torch.as_tensor(np.arange(n) % 3 != 0, dtype=torch.float32,
+                             device=dev) if weighted else None)
+        return X, y, w, F, p, torch.tensor(0.7, device=dev), cbar, pbar
+
+    def kernel_vs_plain(phase, name, kern, plain, tol, n, d, k):
+        got, again = kern(), kern()
+        torch.cuda.synchronize()
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        ref = plain()
+        err = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        row = dict(n=n, d=d, k=k, max_abs_err=max(err), err=err,
+                   tol=list(tol), bitwise=bitwise,
+                   ms=median_ms(kern, hide_host=True),
+                   plain_ms=median_ms(plain, hide_host=True),
+                   call_ms=median_ms(kern), plain_call_ms=median_ms(plain))
+        say(phase, shape=name, **row)
+        check(bitwise, f"{phase}: not bitwise repeatable at {name}")
+        check(all(e <= t for e, t in zip(err, tol)),
+              f"{phase}: disagrees with the plain version at {name}: "
+              f"{err} > {tol}")
+        return got, row
+
+    k2f, k2b = {}, {}
+    for name, n, d, k, weighted in K2_SHAPES:
+        X, y, w, F, p, s, cbar, pbar = k2_inputs(n, d, k, weighted)
+        got, k2f[name] = kernel_vs_plain(
+            "k2f_vs_plain", name,
+            lambda: sufficient_stats_cuda(X, y, w, F, p, s),
+            lambda: sufficient_stats_ref(X, y, w, F, p, s),
+            k2f_tolerance(X, F, p, s, y, w), n, d, k)
+        check(torch.equal(got[0], got[0].T), f"K2f's Gram is not symmetric "
+              f"at {name}")
+        _, k2b[name] = kernel_vs_plain(
+            "k2b_vs_plain", name,
+            lambda: sufficient_stats_bwd_cuda(X, y, w, F, p, s, cbar, pbar),
+            lambda: gram_bwd_ref(X, y, w, F, p, s, cbar, pbar),
+            k2b_tolerance(X, F, p, s, y, w, cbar, pbar), n, d, k)
+
     ref_phi = plain_fourier_features
 
     def timed(fn):
@@ -396,7 +708,10 @@ def main():
         counted.last = n
         return n
 
-    launches = Launches(fourier_features_cuda, fourier_features_bwd_cuda)
+    launches = Launches(phi_fwd=fourier_features_cuda,
+                        phi_bwd=fourier_features_bwd_cuda,
+                        gram_fwd=sufficient_stats_cuda,
+                        gram_bwd=sufficient_stats_bwd_cuda)
 
     def check_post(post, ref, what):
         errs = {f: rel_err(getattr(post, f), getattr(ref, f))
@@ -544,11 +859,7 @@ def main():
             (cost_p, _), grads_p = loss_and_grad(params, X, y)
         torch.cuda.synchronize()
         e_cost = abs(float(cost) - float(cost_p)) / abs(float(cost_p))
-        scale = max(float(g.abs().max()) for g in grads_p)
-        e_grad = {}
-        for field, g, gp in zip(grads._fields, grads, grads_p):
-            den = scale if "phase" in field else float(gp.abs().max())
-            e_grad[field] = float((g - gp).abs().max()) / max(den, 1e-30)
+        e_grad = grad_errors(grads, grads_p)
         check(all(math.isfinite(float(g.abs().max())) for g in grads),
               f"train step at {name}: a gradient is not finite")
         check(e_cost <= COST_TOL and max(e_grad.values()) <= GRAD_TOL,
@@ -689,23 +1000,23 @@ def main():
           "fit: the resumed host loop differs from the uninterrupted one")
     workdir.cleanup()
 
-    main_fwd, main_bwd = k1["kin8nm"], k1b["kin8nm"]
+    # 9. streaming: N=1e6, D=256, S=56, M=200 at full width ------------------
+    streaming(dev, launches)
+
+    kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",
+                k1["kin8nm"]),
+               ("phi_bwd", "csrc/phi_bwd.cu", "scfgp_tpu/ops/phi.py:73",
+                k1b["kin8nm"]),
+               ("gram_fwd", "csrc/gram_fwd.cu", "scfgp_tpu/ops/gram.py:45",
+                k2f["block"]),
+               ("gram_bwd", "csrc/gram_bwd.cu", "scfgp_tpu/ops/gram.py:85",
+                k2b["block"])]
     print(json.dumps({"kernels": [
-        {"name": "phi_fwd", "route": "cuda",
-         "source": "scfgp_tpu_torch/csrc/phi_fwd.cu",
-         "replaces": "scfgp_tpu/ops/phi.py:65",
-         "launches": launches.total("phi_fwd"),
-         "max_abs_err": main_fwd["max_abs_err"],
-         "ms": main_fwd["ms"], "plain_ms": main_fwd["plain_ms"],
-         "by_path": {p: c["phi_fwd"] for p, c in launches.by_path.items()}},
-        {"name": "phi_bwd", "route": "cuda",
-         "source": "scfgp_tpu_torch/csrc/phi_bwd.cu",
-         "replaces": "scfgp_tpu/ops/phi.py:73",
-         "launches": launches.total("phi_bwd"),
-         "max_abs_err": main_bwd["max_abs_err"],
-         "ms": main_bwd["ms"], "plain_ms": main_bwd["plain_ms"],
-         "by_path": {p: c["phi_bwd"] for p, c in launches.by_path.items()}},
-    ]}), flush=True)
+        {"name": name, "route": "cuda", "source": "scfgp_tpu_torch/" + src,
+         "replaces": replaces, "launches": launches.total(name),
+         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+         "plain_ms": row["plain_ms"], "by_path": launches.of(name)}
+        for name, src, replaces, row in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

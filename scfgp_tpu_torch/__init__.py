@@ -5,10 +5,12 @@ reference the port is held against.  This package imports neither JAX nor
 ``scfgp_tpu``.  It covers training (the objective's gradient, the optimizer
 zoo, the host and fused early-stopping loops: ``fit``/``fit_fast``) and
 serving (load a trained model, condition its posterior on data, answer
-predict requests, fold in new observations, recalibrate the dispersion).
-The trig feature map and its gradient run as the hand-written CUDA kernels
-``csrc/phi_fwd.cu`` and ``csrc/phi_bwd.cu`` on the card and as plain
-PyTorch on the CPU.
+predict requests, fold in new observations, recalibrate the dispersion)
+and the streaming objective for large N (``ops/streaming.py``).  The trig
+feature map and its gradient (``csrc/phi_fwd.cu``, ``csrc/phi_bwd.cu``) and
+the Phi-free sufficient statistics and their gradient
+(``csrc/gram_fwd.cu``, ``csrc/gram_bwd.cu``) run as hand-written CUDA
+kernels on the card and as plain PyTorch on the CPU.
 """
 
 from .models.params import (SCFGPParams, init_params, pack_params,

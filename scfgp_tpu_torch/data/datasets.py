@@ -1,8 +1,10 @@
-"""Dataset loaders of the serving slice: boston, abalone, kin8nm.
+"""Dataset loaders (boston, abalone, kin8nm) and the scaling synthetics.
 
 A NumPy-only carry of ``scfgp_tpu/data/datasets.py:43-373`` (the split, the
-real-file sniffing and the deterministic synthetic surrogates), so the port
-loads the same rows as the JAX package without importing it.  Each loader:
+real-file sniffing and the deterministic synthetic surrogates) and of its
+synthetics ``synthetic_gp_rff`` and ``synthetic_large`` (``:584-610``), so
+the port loads the same rows as the JAX package without importing it.  Each
+loader:
 
 1. loads a real file from ``experiments/data/`` if one is present (schemas
    below), else
@@ -12,7 +14,7 @@ loads the same rows as the JAX package without importing it.  Each loader:
 All loaders return ``(X_train, y_train, X_valid, y_valid, meta)`` with the
 reference's split proportions and take a ``seed`` for the split RNG
 (``reference: experiments/boston_housing/boston_housing.py:80``).  The
-surrogate floor oracles, co2 and the large synthetics are not carried yet.
+surrogate floor oracles and co2 are not carried yet.
 """
 
 from __future__ import annotations
@@ -314,3 +316,34 @@ def load_kin8nm(prop: float = 0.8, seed: Optional[int] = None):
         source = "synthetic-surrogate"
     Xt, yt, Xv, yv = _split(X, y, prop, rng)
     return Xt, yt, Xv, yv, {"name": "kin8nm", "source": source}
+
+
+# -- synthetics for tests and scaling benchmarks ----------------------------
+
+def synthetic_gp_rff(n: int, d: int, s: int, m: int, noise_std: float = 0.1,
+                     seed: int = 0, dtype=np.float64):
+    """Data drawn from the SCFGP model family, with a known noise floor
+    (``scfgp_tpu/data/datasets.py:584-599``): a well-fit model approaches
+    NMSE ~= noise_std² / var(y)."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, d)
+    F = rng.randn(d, s).dot(rng.randn(m, s).T) * 2.0
+    phases = rng.rand(m) * 2 * np.pi
+    Phi = np.sqrt(2.0 / m) * np.cos(X.dot(F) + phases)
+    w = rng.randn(m)
+    f = Phi.dot(w)
+    y = f + noise_std * rng.randn(n)
+    return X.astype(dtype), y.astype(dtype)
+
+
+def synthetic_large(n: int = 1_000_000, d: int = 256, seed: int = 0,
+                    dtype=np.float32):
+    """The weak-scaling configuration of ``BASELINE.json`` (N=1e6, D=256)
+    that the streaming objective trains
+    (``scfgp_tpu/data/datasets.py:602-610``)."""
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, d).astype(dtype)
+    w1 = rng.randn(d, 16).astype(dtype)
+    w2 = rng.randn(16).astype(dtype)
+    y = np.tanh(X @ w1) @ w2 + 0.1 * rng.randn(n).astype(dtype)
+    return X, y.astype(dtype)

@@ -30,7 +30,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.phi import FourierFeatures
-from .params import SCFGPParams, derive_frequencies
+from .params import SCFGPParams, derive_frequencies, feature_scale
 
 EPSILON = 1e-6  # jitter added to sig2_n, reference SCFGP.py:93,105
 
@@ -73,8 +73,7 @@ def fourier_features(p: SCFGPParams, X: torch.Tensor) -> torch.Tensor:
     projection ``X @ [l_F | F]`` with mean-centred phases and scale
     ``sig_f * sqrt(2/M)``."""
     d = derive_frequencies(p)
-    scale = torch.exp(p.b) * math.sqrt(2.0 / p.M)
-    return FourierFeatures.apply(X, d.Fcat, d.pcat, scale)
+    return FourierFeatures.apply(X, d.Fcat, d.pcat, feature_scale(p))
 
 
 def sufficient_stats(Phi: torch.Tensor, y: torch.Tensor,
@@ -236,17 +235,23 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
     return (t.clone() if t.is_inference() else t).requires_grad_()
 
 
-def loss_and_grad(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
-                  w: Optional[torch.Tensor] = None, basis_fn=None):
-    """``((cost, LossAux), grads)`` with ``grads`` an ``SCFGPParams`` of
-    d cost / d p: ``jax.value_and_grad(loss_fn, has_aux=True)``
-    (``scfgp_tpu/models/objective.py:403``).  The gradient is taken by
+def value_and_grad(loss, p: SCFGPParams, *args, **kwargs):
+    """``((cost, LossAux), grads)`` of ``loss(p, *args, **kwargs)``, with
+    ``grads`` an ``SCFGPParams`` of d cost / d p:
+    ``jax.value_and_grad(loss, has_aux=True)``.  The gradient is taken by
     ``torch.autograd.grad`` on leaf copies of the params, so nothing
     accumulates in ``.grad``; every output is detached."""
     leaves = SCFGPParams(*map(_leaf, p))
     with torch.enable_grad():
-        cost, aux = loss_fn(leaves, X, y, w=w, basis_fn=basis_fn)
+        cost, aux = loss(leaves, *args, **kwargs)
         grads = torch.autograd.grad(cost, leaves)
     aux = LossAux(post=Posterior(*(t.detach() for t in aux.post)),
                   nlml=aux.nlml.detach(), penalty=aux.penalty.detach())
     return (cost.detach(), aux), SCFGPParams(*grads)
+
+
+def loss_and_grad(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
+                  w: Optional[torch.Tensor] = None, basis_fn=None):
+    """``value_and_grad`` of ``loss_fn``
+    (``scfgp_tpu/models/objective.py:403``)."""
+    return value_and_grad(loss_fn, p, X, y, w=w, basis_fn=basis_fn)

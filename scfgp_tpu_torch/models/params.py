@@ -161,6 +161,11 @@ class DerivedFrequencies(NamedTuple):
     pcat: torch.Tensor
 
 
+def feature_scale(p: SCFGPParams) -> torch.Tensor:
+    """``sig_f * sqrt(2/M)``, with M and not S+M (``SCFGP.py:102``)."""
+    return torch.exp(p.b) * math.sqrt(2.0 / p.M)
+
+
 def derive_frequencies(p: SCFGPParams) -> DerivedFrequencies:
     F = p.l_F @ p.r_F.T
     l_FC = p.l_phase - p.l_F.mean(dim=0)

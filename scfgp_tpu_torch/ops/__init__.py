@@ -1,2 +1,16 @@
 from .phi import (FourierFeatures, fourier_features_bwd_cuda,
                   fourier_features_cuda, fourier_features_ref, phi_bwd_ref)
+from .gram import (SufficientStatsFn, gram_bwd_ref, sufficient_stats_bwd_cuda,
+                   sufficient_stats_cuda, sufficient_stats_kernel,
+                   sufficient_stats_ref)
+
+_STREAMING = ("loss_fn_streaming", "loss_and_grad_streaming")
+
+
+def __getattr__(name):
+    # ops/streaming.py builds on models/objective.py, which imports this
+    # package: its names load at first use, not here.
+    if name in _STREAMING:
+        from . import streaming
+        return getattr(streaming, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

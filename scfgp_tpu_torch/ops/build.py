@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``scfgp_tpu_torch/_build/lib<name>-<hash>.so``,
-keyed by a hash of the source and the flags, so an edited source rebuilds
-and an unchanged one is reused.  The directory is listed in ``.gitignore``.
-Nothing here runs at import: the CPU tests import every module.
+keyed by a hash of the source, the shared headers and the flags, so an
+edited source rebuilds and an unchanged one is reused.  The directory is
+listed in ``.gitignore``.  Nothing here runs at import: the CPU tests
+import every module.
 
 There is no fallback: a missing ``nvcc`` or a failed build raises.
 """
@@ -28,6 +29,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _loaded: dict = {}
+_ERROR_STRING = {"scfgp_cuda_error_string": ([ctypes.c_int], ctypes.c_char_p)}
 
 
 def find_nvcc() -> str:
@@ -45,7 +47,10 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    """The library's path, keyed by its source, the shared headers
+    (``csrc/*.cuh``) and the flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC_DIR / f"{name}.cu",
+                                            *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
@@ -71,11 +76,24 @@ def build(name: str) -> Path:
     return so
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``, once per process."""
+def load_library(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, once per process, and
+    declare the types of its C functions: ``signatures`` maps a function's
+    name to ``(argtypes, restype)``.  Every library also exports
+    ``scfgp_cuda_error_string``."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(build(name)))
+            for fn, (args, res) in {**signatures, **_ERROR_STRING}.items():
+                getattr(lib, fn).argtypes = args
+                getattr(lib, fn).restype = res
             _loaded[name] = lib
         return lib
+
+
+def raise_on(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code other than 0."""
+    if rc != 0:
+        msg = lib.scfgp_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cuda error {rc})")

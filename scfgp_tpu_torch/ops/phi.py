@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from .build import load_library
+from .build import load_library, raise_on
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -46,14 +46,7 @@ _SIGNATURES = {
 
 
 def _library(name: str) -> ctypes.CDLL:
-    lib = load_library(name)
-    if lib.scfgp_cuda_error_string.restype is not ctypes.c_char_p:
-        for fn, (args, res) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = args
-            getattr(lib, fn).restype = res
-        lib.scfgp_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.scfgp_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return load_library(name, _SIGNATURES[name])
 
 
 def fourier_features_ref(X: torch.Tensor, Fcat: torch.Tensor,
@@ -77,11 +70,10 @@ def phi_bwd_ref(X: torch.Tensor, Fcat: torch.Tensor, pcat: torch.Tensor,
     return X.T @ dT, dT.sum(dim=0), torch.sum(g_cos * c + g_sin * sn)
 
 
-def _check(where, X, Fcat, pcat, scale, g=None):
-    tensors = {"X": X, "Fcat": Fcat, "pcat": pcat, "scale": scale}
-    if g is not None:
-        tensors["g"] = g
-    for name, t in tensors.items():
+def check_kernel_inputs(where, X, **tensors):
+    """Refuse what a CUDA kernel does not take: every tensor must be
+    float32, contiguous and on the CUDA device of ``X``."""
+    for name, t in {"X": X, **tensors}.items():
         if t.device.type != "cuda" or t.device != X.device:
             raise ValueError(f"{where}: {name} is on {t.device}, expected "
                              f"the CUDA device of X ({X.device})")
@@ -90,6 +82,13 @@ def _check(where, X, Fcat, pcat, scale, g=None):
                             "takes float32 only")
         if not t.is_contiguous():
             raise ValueError(f"{where}: {name} is not contiguous")
+
+
+def _check(where, X, Fcat, pcat, scale, g=None):
+    tensors = {"Fcat": Fcat, "pcat": pcat, "scale": scale}
+    if g is not None:
+        tensors["g"] = g
+    check_kernel_inputs(where, X, **tensors)
     if X.dim() != 2 or Fcat.dim() != 2 or pcat.dim() != 1:
         raise ValueError(f"{where}: expected X (N, D), Fcat (D, K), pcat "
                          f"(K,); got {tuple(X.shape)}, {tuple(Fcat.shape)}, "
@@ -106,16 +105,10 @@ def _check(where, X, Fcat, pcat, scale, g=None):
         raise ValueError(f"{where}: a dimension exceeds int32")
 
 
-def _refuse_grad(where, *tensors):
-    if any(t.requires_grad for t in tensors):
+def refuse_grad(where, *tensors, through="FourierFeatures"):
+    if any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(f"{where}: an input requires grad; differentiate "
-                           "through FourierFeatures, not the raw kernel")
-
-
-def _raise_on(lib, rc, name):
-    if rc != 0:
-        msg = lib.scfgp_cuda_error_string(rc).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (cuda error {rc})")
+                           f"through {through}, not the raw kernel")
 
 
 def _phi_fwd(X, Fcat, pcat, scale):
@@ -131,7 +124,7 @@ def _phi_fwd(X, Fcat, pcat, scale):
         rc = lib.scfgp_phi_fwd_f32(X.data_ptr(), Fcat.data_ptr(),
                                    pcat.data_ptr(), scale.data_ptr(),
                                    out.data_ptr(), n, d, k, stream)
-    _raise_on(lib, rc, "phi_fwd")
+    raise_on(lib, rc, "phi_fwd")
     fourier_features_cuda.launches += 1
     return out
 
@@ -153,7 +146,7 @@ def _phi_bwd(X, Fcat, pcat, scale, g):
                 X.data_ptr(), Fcat.data_ptr(), pcat.data_ptr(),
                 scale.data_ptr(), g.data_ptr(), part.data_ptr(),
                 out.data_ptr(), n, d, k, stream)
-        _raise_on(lib, rc, "phi_bwd")
+        raise_on(lib, rc, "phi_bwd")
         fourier_features_bwd_cuda.launches += 1
     return out[:d * k].view(d, k), out[d * k:d * k + k], out[d * k + k]
 
@@ -166,7 +159,7 @@ def fourier_features_cuda(X: torch.Tensor, Fcat: torch.Tensor,
     ``scale`` is a one-element device tensor, read by the kernel through
     its pointer (no host synchronisation).  Raises on anything the kernel
     does not take, on inputs that require grad, and if the launch fails."""
-    _refuse_grad("fourier_features_cuda", X, Fcat, pcat, scale)
+    refuse_grad("fourier_features_cuda", X, Fcat, pcat, scale)
     return _phi_fwd(X, Fcat, pcat, scale)
 
 
@@ -176,7 +169,7 @@ def fourier_features_bwd_cuda(X: torch.Tensor, Fcat: torch.Tensor,
     """``(dFcat (D, K), dpcat (K,), ds ())`` by the CUDA kernel from the
     cotangent ``g`` (N, 2K) of the feature map, on PyTorch's current
     stream; bitwise repeatable.  Raises as ``fourier_features_cuda`` does."""
-    _refuse_grad("fourier_features_bwd_cuda", X, Fcat, pcat, scale, g)
+    refuse_grad("fourier_features_bwd_cuda", X, Fcat, pcat, scale, g)
     return _phi_bwd(X, Fcat, pcat, scale, g)
 
 

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1f and K1b and the port's serving and training paths
-on an NVIDIA card.
+"""The CUDA kernels K1f, K1b, K2f and K2b and the port's serving, training
+and streaming paths on an NVIDIA card.
 
 Every test here needs a card and nvcc: it carries the ``cuda`` marker and
 skips on a machine without one.  This file imports neither JAX nor the JAX
@@ -9,6 +9,7 @@ package, so it also runs where JAX is not installed:
 """
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -18,13 +19,19 @@ from scfgp_tpu_torch import SCFGP
 from scfgp_tpu_torch.data.datasets import load_kin8nm
 from scfgp_tpu_torch.models.objective import loss_and_grad
 from scfgp_tpu_torch.models.params import init_params
+from scfgp_tpu_torch.ops.gram import (gram_bwd_ref, sufficient_stats_bwd_cuda,
+                                      sufficient_stats_cuda,
+                                      sufficient_stats_ref)
 from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
                                      fourier_features_cuda,
                                      fourier_features_ref, phi_bwd_ref)
-
-torch.set_num_threads(1)
+from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from chip_smoke import k2b_tolerance, k2f_tolerance  # noqa: E402
+
+torch.set_num_threads(1)
 # Ragged shapes, the served kin8nm model's (N=6553, 2K=554) and D=256.
 SHAPES = [(1, 3, 37), (777, 3, 37), (130, 1, 5), (300, 9, 129),
           (6553, 8, 277), (4096, 256, 500)]
@@ -198,3 +205,103 @@ def test_float64_model_on_card_raises_at_the_kernel(cuda_device):
               dtype=torch.float64)
     with pytest.raises(TypeError, match="float32 only"):
         m.fit(Xv[:200], yv[:200], max_iter=2)
+
+
+# Ragged shapes, zero-weight rows, kin8nm's (N=6553, 2K=554) and the
+# streaming block's (N=16384, D=256, K=256).
+K2_SHAPES = [(1, 3, 37, False), (777, 3, 37, True), (300, 9, 129, False),
+             (6553, 8, 277, False), (16384, 256, 256, False)]
+
+
+def _k2_inputs(n, d, k, weighted, device, seed=0):
+    rng = np.random.RandomState(seed)
+    X, y, F, p, cbar, pbar = (
+        torch.as_tensor(a, dtype=torch.float32, device=device)
+        for a in (rng.rand(n, d), rng.randn(n), 3.0 * rng.randn(d, k),
+                  rng.uniform(0, 2 * np.pi, k), rng.randn(2 * k, 2 * k),
+                  rng.randn(2 * k)))
+    w = (torch.as_tensor(np.arange(n) % 3 != 0, dtype=torch.float32,
+                         device=device) if weighted else None)
+    return X, y, w, F, p, torch.tensor(0.7, device=device), cbar, pbar
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,weighted", K2_SHAPES)
+def test_gram_kernels_match_plain_and_repeat_bitwise(cuda_device, n, d, k,
+                                                     weighted):
+    """K2f and K2b against their plain versions, within the rounding-model
+    bounds of chip_smoke.py (k2f_tolerance, k2b_tolerance)."""
+    X, y, w, F, p, s, cbar, pbar = _k2_inputs(n, d, k, weighted, cuda_device)
+    before = (sufficient_stats_cuda.launches,
+              sufficient_stats_bwd_cuda.launches)
+    fwd = [sufficient_stats_cuda(X, y, w, F, p, s) for _ in range(2)]
+    bwd = [sufficient_stats_bwd_cuda(X, y, w, F, p, s, cbar, pbar)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (sufficient_stats_cuda.launches,
+            sufficient_stats_bwd_cuda.launches) == (before[0] + 2,
+                                                    before[1] + 2)
+    assert torch.equal(fwd[0][0], fwd[0][0].T)  # emitted symmetric
+    for got, ref, tol in (
+            (fwd, sufficient_stats_ref(X, y, w, F, p, s),
+             k2f_tolerance(X, F, p, s, y, w)),
+            (bwd, gram_bwd_ref(X, y, w, F, p, s, cbar, pbar),
+             k2b_tolerance(X, F, p, s, y, w, cbar, pbar))):
+        for a, b, r, t in zip(*got, ref, tol):
+            assert a.shape == r.shape
+            assert torch.equal(a, b)  # no atomics: bitwise repeatable
+            assert float((a - r).abs().max()) <= t
+
+
+@pytest.mark.cuda
+def test_gram_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    X, y, w, F, p, s, cbar, pbar = _k2_inputs(64, 4, 9, True, cuda_device)
+    with pytest.raises(TypeError):
+        sufficient_stats_cuda(X.double(), y, w, F, p, s)
+    with pytest.raises(TypeError):
+        sufficient_stats_bwd_cuda(X, y, w, F, p, s, cbar.double(), pbar)
+    with pytest.raises(ValueError):
+        sufficient_stats_cuda(X.t().contiguous().t(), y, w, F, p, s)
+    with pytest.raises(ValueError):
+        sufficient_stats_cuda(X, y.cpu(), w, F, p, s)
+    with pytest.raises(ValueError):
+        sufficient_stats_cuda(X, y, w[:10].contiguous(), F, p, s)
+    with pytest.raises(ValueError):
+        sufficient_stats_bwd_cuda(X, y, w, F, p, s, cbar[:4].contiguous(),
+                                  pbar)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        sufficient_stats_cuda(X, y, w, F.requires_grad_(), p, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["kernel", "gemm"])
+def test_streaming_on_card_matches_host_float64(cuda_device, route):
+    """loss_fn_streaming's cost and gradient on the card in f32 against the
+    host's plain dense f64 path, at the tolerances of the dense test above
+    (f32 rounding through the Cholesky backward)."""
+    rng = np.random.RandomState(3)
+    X, y = rng.rand(3000, 6), rng.randn(3000)
+    p64 = init_params(torch.Generator().manual_seed(1), 6, 6, 40,
+                      torch.float64)
+    p32 = type(p64)(*[t.float().to(cuda_device) for t in p64])
+    launches = [f.launches for f in (sufficient_stats_cuda,
+                                     sufficient_stats_bwd_cuda,
+                                     fourier_features_cuda,
+                                     fourier_features_bwd_cuda)]
+    (c32, _), g32 = loss_and_grad_streaming(
+        p32, torch.as_tensor(X, dtype=torch.float32, device=cuda_device),
+        torch.as_tensor(y, dtype=torch.float32, device=cuda_device),
+        block_size=700, stats_impl=route)
+    after = [f.launches for f in (sufficient_stats_cuda,
+                                  sufficient_stats_bwd_cuda,
+                                  fourier_features_cuda,
+                                  fourier_features_bwd_cuda)]
+    gram_used = route == "kernel"
+    assert [a > b for a, b in zip(after, launches)] == [
+        gram_used, gram_used, True, True]
+    (c64, _), g64 = loss_and_grad(p64, torch.as_tensor(X), torch.as_tensor(y))
+    np.testing.assert_allclose(float(c32), float(c64), rtol=1e-4)
+    top = max(float(t.abs().max()) for t in g64)
+    for name, a, b in zip(g64._fields, g32, g64):
+        den = top if "phase" in name else float(b.abs().max())
+        assert float((a.cpu().double() - b).abs().max()) <= 1e-3 * den, name
