@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training and streaming paths on one card.
+"""Drive the PyTorch port's serving, training, streaming and Cholesky paths
+on one card.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 1. card and precision: name and power limit (nvidia-smi), torch and CUDA
    versions; float32 matrix products must not run in TF32;
 2. build the CUDA kernels K1f (csrc/phi_fwd.cu), K1b (csrc/phi_bwd.cu),
-   K2f (csrc/gram_fwd.cu) and K2b (csrc/gram_bwd.cu) from this checkout,
-   one nvcc each, started together;
+   K2f (csrc/gram_fwd.cu), K2b (csrc/gram_bwd.cu), and K4 and K3
+   (csrc/cholesky.cu) from this checkout, one nvcc each, started together;
 3. K1f against its plain PyTorch version on the card at the slice's shapes,
    with both times (CUDA events, median of repeats): device time (``ms``)
    and time per call with the host's share (``call_ms``);
@@ -20,6 +21,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``gram_bwd_ref``, with error bounds from a rounding model
    (k2f_tolerance, k2b_tolerance), bitwise repeatable, at kin8nm, bench,
    ragged, the streaming block and zero-weight rows;
+3e. K4 and K3 against torch's pair (``cholesky_ref``,
+   ``cholesky_inverse_ref``) at n from 1 to 4096, with the bounds of a
+   rounding model (chol_tolerance) on L Lᵀ - A, L⁻¹ L - I and the
+   differences from the plain versions; strict upper triangles exactly 0,
+   bitwise repeatable, gradients through the kernels' autograd Functions
+   against the plain ones, and an indefinite matrix that must return;
 4. serve the kin8nm model trained by the JAX package
    (experiments/results/kin8nm/best_model.pkl): load, then predict request
    batches of 1, 17, 256 rows and the full 1639-row split;
@@ -45,12 +52,20 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 9. streaming: ``loss_fn_streaming`` at N=1e6, D=256, S=56, M=200, block
    16384 (experiments/tpu_streaming_1m.py, uncut): the kernel route against
    the GEMM route and the dense path, five adam steps on each route, and
-   the peak memory of a step (see ``streaming``).
+   the peak memory of a step (see ``streaming``);
+10. the Cholesky crossover (scfgp_tpu_torch/experiments/chol_crossover.py)
+   at n = 512, 1024, 2048, 4096: K4 and K3 against torch's pair and the
+   block-Neumann inverse, each leg's device time and time per call;
+10b. the served kin8nm model's posterior (2K = 554, 6553 rows) rebuilt
+   through K3 and held against ``solve_posterior`` (torch's pair).
 
-The launch counts of the four kernels are set to 0 just before each path
-(the serving path, phases 4-5, each training phase, and the streaming
-kernel route) and read just after; every training phase must launch K1f
-and K1b, the streaming path all four.  The line before the last is a JSON
+The launch counts of the six kernels are set to 0 just before each path
+(the serving path, phases 4-5, each training phase, the streaming kernel
+route, the crossover and the posterior through K3) and read just after;
+every training phase must launch K1f and K1b, the streaming path K1f, K1b,
+K2f and K2b, the crossover K4 and K3, the posterior K3; the serving,
+training and streaming paths must launch neither K3 nor K4 (their
+posterior stays on torch's pair).  The line before the last is a JSON
 object with each kernel's launches, error and times; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 there is no CUDA device or no package beside it.
@@ -112,6 +127,21 @@ K1B_C = 4.0
 # The factor on the root-sum-square term of the K2 error bounds
 # (k2f_tolerance, k2b_tolerance), as K1B_C.
 K2_C = 4.0
+# K4 and K3 (phase 3e) and torch's pair are backward stable (Higham,
+# "Accuracy and Stability of Numerical Algorithms", ch. 8 and 10): with
+# g = CHOL_C n u, a computed factor has |L Lᵀ - A| <= g |L| |L|ᵀ and a
+# computed triangular inverse |L⁻¹ L - I| <= g |L⁻¹| |L|, entry by entry.
+# Two such factors of one A differ by about g cond(A) |L| (the factor's
+# forward error), their inverses by g cond(A)^1.5 |L⁻¹| (through
+# L⁻¹ dL L⁻¹), and the gradients of a loss of (L, L⁻¹) by g cond(A)^2 of
+# the gradient's largest entry (chol_tolerance).
+CHOL_C = 4.0
+# n of phase 3e: 1 and ragged sizes, the bench, streaming and kin8nm
+# posteriors (2K = 500, 512, 554) and the crossover's sizes.
+CHOL_SIZES = [1, 37, 200, 500, 512, 554, 1024, 2048, 4096]
+CHOL_GRAD_SIZES = (37, 554)
+# Where a call's device time goes, by kernel (torch.profiler).
+CHOL_PROFILE_SIZES = (554, 4096)
 
 # Shapes (N, D, K) of phases 3c and 3d: kin8nm, bench, ragged ones, the
 # streaming block of phase 9 (K = S + M = 256, D = 256), and one whose
@@ -172,32 +202,16 @@ def check(ok, what):
 
 def median_ms(fn, reps=21, inner=10, hide_host=False):
     """Median over ``reps`` of the mean time of ``inner`` back-to-back calls,
-    by CUDA events.  Plain, this is the time per call as a caller sees it,
-    host work included.  With ``hide_host`` a sleep kernel holds the stream
-    while the host enqueues the calls, so the events time the device work
-    alone; a repeat counts only if the device was still asleep when the last
-    call was enqueued (else the sleep is doubled)."""
+    by CUDA events (``utils/profiling.py::time_fn``).  Plain, this is the
+    time per call as a caller sees it, host work included.  With
+    ``hide_host`` a sleep kernel holds the stream while the host enqueues
+    the calls, so the events time the device work alone."""
+    from scfgp_tpu_torch.utils.profiling import time_fn
     fn()
-    torch.cuda.synchronize()
-    cycles = 10_000_000
-    times = []
-    while len(times) < reps:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if hide_host:
-            torch.cuda._sleep(cycles)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        hidden = not start.query()
-        end.synchronize()
-        if hide_host and not hidden:
-            cycles *= 2
-            check(cycles < 2 ** 34, "host enqueue could not be hidden")
-            continue
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    clock = "device" if hide_host else "call"
+    return statistics.median(
+        time_fn(fn, iters=inner, warmup=0, clock=clock)["ms_per_call"]
+        for _ in range(reps))
 
 
 def k1_tolerance(X, F, p, s):
@@ -325,6 +339,114 @@ def k2b_tolerance(X, F, p, s, y, w, cbar, pbar):
                         + K2_C * (e_ds.sum(dim=1) ** 2).sum().sqrt()))
 
 
+def chol_tolerance(A, L, Li):
+    """Bounds of phase 3e (see CHOL_C), in float64 from the kernel's L and
+    L⁻¹: reconstruction, inverse residual, L and L⁻¹ against the plain
+    versions, the gradient relative to its largest entry; and cond(A)."""
+    A, L, Li = (t.double() for t in (A, L, Li))
+    g = CHOL_C * A.shape[0] * U32
+    ev = torch.linalg.eigvalsh(A)
+    cond = float(ev[-1] / ev[0])
+    return dict(recon=g * float((L.abs() @ L.abs().T).max()),
+                inverse=g * float((Li.abs() @ L.abs()).max()),
+                L=g * cond * float(L.abs().max()),
+                Li=g * cond ** 1.5 * float(Li.abs().max()),
+                grad=g * cond ** 2), cond
+
+
+def cholesky_phase(dev):
+    """Phase 3e: K4 and K3 against torch's pair at CHOL_SIZES on the
+    crossover's input (B Bᵀ + I, B = randn(n, n)/sqrt(n), seed 0).  Returns
+    the rows by n."""
+    from scfgp_tpu_torch.experiments.chol_crossover import spd_input
+    from scfgp_tpu_torch.models.objective import chol_and_inverse
+    from scfgp_tpu_torch.ops.cholesky import (
+        cholesky_cuda, cholesky_inverse_cuda, cholesky_inverse_kernel,
+        cholesky_inverse_ref, cholesky_kernel, cholesky_ref)
+
+    def grad(fn, A, loss):
+        leaf = A.clone().requires_grad_()
+        return torch.autograd.grad(loss(fn(leaf)), leaf)[0]
+
+    def loss3(out):
+        L, Li = out
+        return torch.log(torch.diagonal(L)).sum() + (Li * Li).sum()
+
+    def loss4(L):
+        return torch.log(torch.diagonal(L)).sum() + 0.1 * L.sum()
+
+    rows = {}
+    for n in CHOL_SIZES:
+        A = spd_input(n, dev)
+        L4, L4b = cholesky_cuda(A), cholesky_cuda(A)
+        (L, Li), (Lb, Lib) = cholesky_inverse_cuda(A), cholesky_inverse_cuda(A)
+        torch.cuda.synchronize()
+        Lp, Lip = cholesky_inverse_ref(A)
+        tol, cond = chol_tolerance(A, L, Li)
+        Ld, Lid, Ad = L.double(), Li.double(), A.double()
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        err = dict(
+            recon=float((Ld @ Ld.T - Ad).abs().max()),
+            recon_k4=float((L4.double() @ L4.double().T - Ad).abs().max()),
+            inverse=float((Lid @ Ld - eye).abs().max()),
+            L=float((L - Lp).abs().max()), L_k4=float((L4 - Lp).abs().max()),
+            Li=float((Li - Lip).abs().max()))
+        upper_zero = all(int(torch.triu(t, 1).count_nonzero()) == 0
+                         for t in (L, Li, L4))
+        bitwise = (torch.equal(L4, L4b) and torch.equal(L, Lb)
+                   and torch.equal(Li, Lib))
+        reps, inner = (5, 3) if n >= 2048 else (21, 10)
+        k4, k3 = (lambda: cholesky_cuda(A)), (lambda: cholesky_inverse_cuda(A))
+        p4, p3 = (lambda: cholesky_ref(A)), (lambda: cholesky_inverse_ref(A))
+        row = dict(
+            n=n, cond_A=cond, err=err, tol=tol, upper_zero=upper_zero,
+            bitwise=bitwise, k4_equals_k3_L=torch.equal(L4, L),
+            k4_ms=median_ms(k4, reps, inner, hide_host=True),
+            k4_plain_ms=median_ms(p4, reps, inner, hide_host=True),
+            k3_ms=median_ms(k3, reps, inner, hide_host=True),
+            k3_plain_ms=median_ms(p3, reps, inner, hide_host=True),
+            k4_call_ms=median_ms(k4, reps, inner),
+            k4_plain_call_ms=median_ms(p4, reps, inner),
+            k3_call_ms=median_ms(k3, reps, inner),
+            k3_plain_call_ms=median_ms(p3, reps, inner))
+        if n in CHOL_PROFILE_SIZES:
+            for name, fn in (("k4", k4), ("k3", k3)):
+                _, _, _, top = device_busy(fn, steps=3)
+                row[f"{name}_top_kernels_ms"] = top
+        if n in CHOL_GRAD_SIZES:
+            g3, g3p = (grad(cholesky_inverse_kernel, A, loss3),
+                       grad(chol_and_inverse, A, loss3))
+            g4, g4p = (grad(cholesky_kernel, A, loss4),
+                       grad(torch.linalg.cholesky, A, loss4))
+            row["grad_rel_err"] = dict(
+                k3=rel_err(g3, g3p), k4=rel_err(g4, g4p))
+        say("cholesky_vs_plain", **row)
+        check(bitwise, f"K3/K4 are not bitwise repeatable at n={n}")
+        check(upper_zero, f"K3/K4 upper triangles are not 0 at n={n}")
+        check(err["recon"] <= tol["recon"] and err["recon_k4"] <= tol["recon"]
+              and err["inverse"] <= tol["inverse"]
+              and err["L"] <= tol["L"] and err["L_k4"] <= tol["L"]
+              and err["Li"] <= tol["Li"],
+              f"K3/K4 disagree with torch's pair at n={n}: {err} > {tol}")
+        check(all(e <= tol["grad"] for e in row.get("grad_rel_err",
+                                                     {}).values()),
+              f"K3/K4 gradients differ at n={n}: {row.get('grad_rel_err')}")
+        rows[n] = row
+
+    # Not positive definite: the clamped pivot gives finite nonsense or
+    # inf, never an error or a hang.
+    rng = np.random.RandomState(1)
+    S = rng.randn(200, 200)
+    A = torch.as_tensor(S + S.T, dtype=torch.float32, device=dev)
+    L, Li = cholesky_inverse_cuda(A)
+    L4 = cholesky_cuda(A)
+    torch.cuda.synchronize()
+    say("cholesky_indefinite", n=200, returned=True,
+        finite=[bool(torch.isfinite(t).all()) for t in (L, Li, L4)],
+        plain_nan=bool(torch.isnan(cholesky_ref(A)).any()))
+    return rows
+
+
 def plain_fourier_features(params, X):
     """The feature map by its plain PyTorch version, differentiable by
     autograd: the plain path the kernel path is held against."""
@@ -348,6 +470,11 @@ def plain_feature_map():
         objective.fourier_features = kernel
 
 
+# Launched only by the Cholesky paths (phases 10, 10b): the serving,
+# training and streaming posteriors stay on torch's pair.
+CHOL_KERNELS = ("cholesky", "cholesky_inverse")
+
+
 class Launches:
     """The kernels' launch counts, set to 0 before a path and read after."""
 
@@ -359,10 +486,12 @@ class Launches:
         for fn in self.kernels.values():
             fn.launches = 0
 
-    def read(self, path, need=("phi_fwd", "phi_bwd")):
+    def read(self, path, need=("phi_fwd", "phi_bwd"), none=CHOL_KERNELS):
         counts = {name: fn.launches for name, fn in self.kernels.items()}
         for name in need:
             check(counts[name] > 0, f"{name} was not launched in {path}")
+        for name in none:
+            check(counts[name] == 0, f"{name} was launched in {path}")
         self.by_path[path] = counts
         return counts
 
@@ -462,7 +591,8 @@ def streaming(dev, launches):
     launches.start()
     (cost, aux), g = grad("kernel")
     torch.cuda.synchronize()
-    counts = launches.read("streaming", need=tuple(launches.kernels))
+    counts = launches.read("streaming", need=("phi_fwd", "phi_bwd",
+                                              "gram_fwd", "gram_bwd"))
     out = {"kernel": (cost, g)}
     for route in ("gemm", "dense"):
         (c, _), gr = grad(route)
@@ -542,6 +672,32 @@ def streaming(dev, launches):
               f"{peaks[route]} exceeds the block bound {bound}")
 
 
+def crossover_phase(launches, chol):
+    """Phase 10: the crossover at its sizes on the card, its launches
+    counted; each kernel leg's difference from the plain leg and the
+    Neumann inverse's held to the bounds phase 3e found at that n (the
+    same input)."""
+    from scfgp_tpu_torch.experiments.chol_crossover import SIZES, crossover
+    launches.start()
+    t = time.perf_counter()
+    res = crossover(SIZES, "cuda", iters=3, reps=3,
+                    report=lambda line: say("crossover", **line))
+    torch.cuda.synchronize()
+    counts = launches.read("crossover", need=CHOL_KERNELS, none=())
+    table = {n: {leg: row["device_ms"] for leg, row in cell["legs"].items()}
+             for n, cell in res["sizes"].items()}
+    say("crossover_table", device=res["device"], device_ms=table,
+        seconds=time.perf_counter() - t, launches=counts)
+    for n, cell in res["sizes"].items():
+        tol = chol[n]["tol"]
+        legs = cell["legs"]
+        check(legs["kernel_chol"]["max_abs_err"] <= tol["L"]
+              and legs["kernel_fused"]["max_abs_err"] <= max(tol["L"],
+                                                             tol["Li"])
+              and cell["neumann_err"] <= tol["Li"],
+              f"crossover at n={n}: a leg disagrees: {cell}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -551,10 +707,13 @@ def main():
     from scfgp_tpu_torch.data.datasets import load_kin8nm
     from scfgp_tpu_torch.models.model import recalibrated_c
     from scfgp_tpu_torch.models.objective import (
-        loss_and_grad, loss_from_phi, predict_from_phi, softplus,
-        solve_posterior, sufficient_stats)
+        EPSILON, Posterior, fourier_features, loss_and_grad, loss_from_phi,
+        predict_from_phi, softplus, solve_posterior, sufficient_stats)
     from scfgp_tpu_torch.models.params import init_params
     from scfgp_tpu_torch.ops import build
+    from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
+                                              cholesky_inverse_cuda,
+                                              cholesky_inverse_kernel)
     from scfgp_tpu_torch.ops.gram import (gram_bwd_ref,
                                           sufficient_stats_bwd_cuda,
                                           sufficient_stats_cuda,
@@ -579,9 +738,9 @@ def main():
     check(tf32 is False, "TF32 float32 matmul is on: posterior GEMMs change")
     dev = torch.device("cuda")
 
-    # 2. build K1f, K1b, K2f and K2b, one nvcc each, started together -----
+    # 2. build K1f, K1b, K2f, K2b and K3/K4, one nvcc each, together -------
     t0 = time.perf_counter()
-    names = ("phi_fwd", "phi_bwd", "gram_fwd", "gram_bwd")
+    names = ("phi_fwd", "phi_bwd", "gram_fwd", "gram_bwd", "cholesky")
     with ThreadPoolExecutor(len(names)) as pool:
         libs = dict(zip(names, pool.map(build.build, names)))
     ptxas = {name: [ln.strip() for ln in so.with_suffix(".log").read_text()
@@ -693,6 +852,9 @@ def main():
             lambda: gram_bwd_ref(X, y, w, F, p, s, cbar, pbar),
             k2b_tolerance(X, F, p, s, y, w, cbar, pbar), n, d, k)
 
+    # 3e. K4 and K3 against torch's pair ------------------------------------
+    chol = cholesky_phase(dev)
+
     ref_phi = plain_fourier_features
 
     def timed(fn):
@@ -711,7 +873,9 @@ def main():
     launches = Launches(phi_fwd=fourier_features_cuda,
                         phi_bwd=fourier_features_bwd_cuda,
                         gram_fwd=sufficient_stats_cuda,
-                        gram_bwd=sufficient_stats_bwd_cuda)
+                        gram_bwd=sufficient_stats_bwd_cuda,
+                        cholesky=cholesky_cuda,
+                        cholesky_inverse=cholesky_inverse_cuda)
 
     def check_post(post, ref, what):
         errs = {f: rel_err(getattr(post, f), getattr(ref, f))
@@ -1003,6 +1167,31 @@ def main():
     # 9. streaming: N=1e6, D=256, S=56, M=200 at full width ------------------
     streaming(dev, launches)
 
+    # 10. the Cholesky crossover -------------------------------------------
+    crossover_phase(launches, chol)
+
+    # 10b. the served kin8nm posterior through K3 ---------------------------
+    srv = SCFGP(device="cuda").load(CKPT)
+    srv.set_data(Xt, yt)
+    launches.start()
+    with torch.inference_mode():
+        stats = sufficient_stats(fourier_features(srv.params, srv.X), srv.y)
+        sig2_n = torch.exp(2.0 * srv.params.a)
+        ref = solve_posterior(stats, sig2_n)
+        A = stats.phiTphi + (sig2_n + EPSILON) * torch.eye(
+            stats.phiTphi.shape[0], device=dev)
+        L, Li = cholesky_inverse_kernel(A)
+        beta = Li @ stats.phiTy
+        post = Posterior(L=L, Li=Li, alpha=Li.T @ beta, beta=beta,
+                         log_diag_L=torch.log(torch.diagonal(L)))
+        torch.cuda.synchronize()
+    counts = launches.read("posterior", need=("cholesky_inverse",), none=())
+    ev = torch.linalg.eigvalsh(A.double())
+    e_post = check_post(post, ref, "posterior through K3")
+    say("posterior_k3", n2k=int(A.shape[0]), rows=srv.N,
+        cond_A=float(ev[-1] / ev[0]), post_rel_err=e_post, tol=POST_TOL,
+        launches=counts)
+
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",
                 k1["kin8nm"]),
                ("phi_bwd", "csrc/phi_bwd.cu", "scfgp_tpu/ops/phi.py:73",
@@ -1010,7 +1199,18 @@ def main():
                ("gram_fwd", "csrc/gram_fwd.cu", "scfgp_tpu/ops/gram.py:45",
                 k2f["block"]),
                ("gram_bwd", "csrc/gram_bwd.cu", "scfgp_tpu/ops/gram.py:85",
-                k2b["block"])]
+                k2b["block"]),
+               ("cholesky", "csrc/cholesky.cu",
+                "scfgp_tpu/ops/cholesky.py:160",
+                dict(max_abs_err=chol[554]["err"]["L_k4"],
+                     ms=chol[554]["k4_ms"],
+                     plain_ms=chol[554]["k4_plain_ms"])),
+               ("cholesky_inverse", "csrc/cholesky.cu",
+                "scfgp_tpu/ops/cholesky.py:247",
+                dict(max_abs_err=max(chol[554]["err"]["L"],
+                                     chol[554]["err"]["Li"]),
+                     ms=chol[554]["k3_ms"],
+                     plain_ms=chol[554]["k3_plain_ms"]))]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": "scfgp_tpu_torch/" + src,
          "replaces": replaces, "launches": launches.total(name),

@@ -7,10 +7,11 @@ zoo, the host and fused early-stopping loops: ``fit``/``fit_fast``) and
 serving (load a trained model, condition its posterior on data, answer
 predict requests, fold in new observations, recalibrate the dispersion)
 and the streaming objective for large N (``ops/streaming.py``).  The trig
-feature map and its gradient (``csrc/phi_fwd.cu``, ``csrc/phi_bwd.cu``) and
+feature map and its gradient (``csrc/phi_fwd.cu``, ``csrc/phi_bwd.cu``),
 the Phi-free sufficient statistics and their gradient
-(``csrc/gram_fwd.cu``, ``csrc/gram_bwd.cu``) run as hand-written CUDA
-kernels on the card and as plain PyTorch on the CPU.
+(``csrc/gram_fwd.cu``, ``csrc/gram_bwd.cu``) and the blocked Cholesky
+factor with its inverse (``csrc/cholesky.cu``, ``ops/cholesky.py``) run as
+hand-written CUDA kernels on the card and as plain PyTorch on the CPU.
 """
 
 from .models.params import (SCFGPParams, init_params, pack_params,

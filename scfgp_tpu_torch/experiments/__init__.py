@@ -1,0 +1,1 @@
+"""Experiments of the port, each runnable with ``python -m``."""

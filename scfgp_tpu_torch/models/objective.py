@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..ops.cholesky import chol_inverse_bwd, cholesky_inverse_ref
 from ..ops.phi import FourierFeatures
 from .params import SCFGPParams, derive_frequencies, feature_scale
 
@@ -93,34 +94,21 @@ def sufficient_stats(Phi: torch.Tensor, y: torch.Tensor,
 
 
 class _CholInverse(torch.autograd.Function):
-    """``(L, Li)`` with the all-GEMM backward of
-    ``scfgp_tpu/models/objective.py:199-243`` (Murray 2016, eq. 8): the
-    forward already holds ``Li``, so every inverse in the backward is a
-    GEMM against it, with ``PHI(S) = tril(S) - diag(S)/2``:
-
-        gL_tot = gL - Liᵀ gLi Liᵀ
-        Abar   = Liᵀ PHI(Lᵀ gL_tot) Li, symmetrised."""
+    """``(L, Li)`` by torch's pair (``ops/cholesky.py::cholesky_inverse_ref``:
+    NaN where ``A`` is not positive definite, as JAX's cholesky gives, which
+    the training loops treat as a step that did not improve), with the
+    all-GEMM backward ``chol_inverse_bwd`` of
+    ``scfgp_tpu/models/objective.py:199-243`` (Murray 2016, eq. 8)."""
 
     @staticmethod
     def forward(ctx, A):
-        # cholesky_ex neither raises nor synchronises with the host; as
-        # JAX's cholesky does, a matrix that is not positive definite gives
-        # NaN, which the training loops treat as a step that did not improve.
-        L, info = torch.linalg.cholesky_ex(A)
-        L = torch.where(info == 0, L, torch.tril(torch.full_like(L, math.nan)))
-        eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
-        Li = torch.linalg.solve_triangular(L, eye, upper=False)
+        L, Li = cholesky_inverse_ref(A)
         ctx.save_for_backward(L, Li)
         return L, Li
 
     @staticmethod
     def backward(ctx, gL, gLi):
-        L, Li = ctx.saved_tensors
-        gL_tot = gL - Li.T @ gLi @ Li.T  # an unused output's grad is zeros
-        S = L.T @ gL_tot
-        phi = torch.tril(S) - 0.5 * torch.diag(torch.diagonal(S))
-        Abar = Li.T @ phi @ Li
-        return 0.5 * (Abar + Abar.T)
+        return chol_inverse_bwd(*ctx.saved_tensors, gL, gLi)
 
 
 def chol_and_inverse(A: torch.Tensor):

@@ -1,5 +1,9 @@
 from .phi import (FourierFeatures, fourier_features_bwd_cuda,
                   fourier_features_cuda, fourier_features_ref, phi_bwd_ref)
+from .cholesky import (CholeskyFn, CholeskyInverseFn, cholesky_cuda,
+                       cholesky_inverse_cuda, cholesky_inverse_kernel,
+                       cholesky_inverse_ref, cholesky_kernel, cholesky_ref,
+                       tri_inverse_blocked)
 from .gram import (SufficientStatsFn, gram_bwd_ref, sufficient_stats_bwd_cuda,
                    sufficient_stats_cuda, sufficient_stats_kernel,
                    sufficient_stats_ref)

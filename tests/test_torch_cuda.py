@@ -1,5 +1,5 @@
-"""The CUDA kernels K1f, K1b, K2f and K2b and the port's serving, training
-and streaming paths on an NVIDIA card.
+"""The CUDA kernels K1f, K1b, K2f, K2b, K3 and K4 and the port's serving,
+training and streaming paths on an NVIDIA card.
 
 Every test here needs a card and nvcc: it carries the ``cuda`` marker and
 skips on a machine without one.  This file imports neither JAX nor the JAX
@@ -17,8 +17,13 @@ import torch
 
 from scfgp_tpu_torch import SCFGP
 from scfgp_tpu_torch.data.datasets import load_kin8nm
-from scfgp_tpu_torch.models.objective import loss_and_grad
+from scfgp_tpu_torch.experiments.chol_crossover import spd_input
+from scfgp_tpu_torch.models.objective import chol_and_inverse, loss_and_grad
 from scfgp_tpu_torch.models.params import init_params
+from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
+                                          cholesky_inverse_cuda,
+                                          cholesky_inverse_kernel,
+                                          cholesky_inverse_ref)
 from scfgp_tpu_torch.ops.gram import (gram_bwd_ref, sufficient_stats_bwd_cuda,
                                       sufficient_stats_cuda,
                                       sufficient_stats_ref)
@@ -29,7 +34,8 @@ from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import k2b_tolerance, k2f_tolerance  # noqa: E402
+from chip_smoke import (chol_tolerance, k2b_tolerance,  # noqa: E402
+                        k2f_tolerance)
 
 torch.set_num_threads(1)
 # Ragged shapes, the served kin8nm model's (N=6553, 2K=554) and D=256.
@@ -305,3 +311,68 @@ def test_streaming_on_card_matches_host_float64(cuda_device, route):
     for name, a, b in zip(g64._fields, g32, g64):
         den = top if "phase" in name else float(b.abs().max())
         assert float((a.cpu().double() - b).abs().max()) <= 1e-3 * den, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 37, 65, 200, 554, 1024])
+def test_cholesky_kernels_match_plain_and_repeat_bitwise(cuda_device, n):
+    """K4 and K3 against torch's pair within chip_smoke.py's rounding-model
+    bounds (chol_tolerance); strict upper triangles exactly 0."""
+    A = spd_input(n, cuda_device)
+    before = (cholesky_cuda.launches, cholesky_inverse_cuda.launches)
+    L4 = [cholesky_cuda(A) for _ in range(2)]
+    L3 = [cholesky_inverse_cuda(A) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert (cholesky_cuda.launches,
+            cholesky_inverse_cuda.launches) == (before[0] + 2, before[1] + 2)
+    (L, Li), (Lb, Lib) = L3
+    assert torch.equal(L4[0], L4[1]) and torch.equal(L, Lb)
+    assert torch.equal(Li, Lib)  # no atomics: bitwise repeatable
+    tol, _ = chol_tolerance(A, L, Li)
+    Lp, Lip = cholesky_inverse_ref(A)
+    Ld, Lid = L.double(), Li.double()
+    eye = torch.eye(n, dtype=torch.float64, device=cuda_device)
+    assert float((Ld @ Ld.T - A.double()).abs().max()) <= tol["recon"]
+    assert float((Lid @ Ld - eye).abs().max()) <= tol["inverse"]
+    for got in (L, L4[0]):
+        assert float((got - Lp).abs().max()) <= tol["L"]
+        assert not torch.triu(got, 1).any()
+    assert float((Li - Lip).abs().max()) <= tol["Li"]
+    assert not torch.triu(Li, 1).any()
+
+
+@pytest.mark.cuda
+def test_cholesky_wrappers_raise_on_what_they_do_not_take(cuda_device):
+    A = spd_input(40, cuda_device)
+    for fn in (cholesky_cuda, cholesky_inverse_cuda):
+        with pytest.raises(TypeError, match="float32 only"):
+            fn(A.double())
+        with pytest.raises(ValueError, match="not contiguous"):
+            fn(A.t())
+        with pytest.raises(ValueError, match="square"):
+            fn(A[:39].contiguous())
+        with pytest.raises(RuntimeError, match="requires grad"):
+            fn(A.clone().requires_grad_())
+
+
+@pytest.mark.cuda
+def test_cholesky_inverse_gradient_matches_chol_and_inverse(cuda_device):
+    """The gradient of sum(log diag L) + sum(Li²) through K3's Function
+    against the one through chol_and_inverse (torch's pair), within
+    chol_tolerance's gradient bound."""
+    A = spd_input(300, cuda_device)
+
+    def grad(fn):
+        leaf = A.clone().requires_grad_()
+        L, Li = fn(leaf)
+        loss = torch.log(torch.diagonal(L)).sum() + (Li * Li).sum()
+        return torch.autograd.grad(loss, leaf)[0]
+
+    before = cholesky_inverse_cuda.launches
+    got = grad(cholesky_inverse_kernel)
+    assert cholesky_inverse_cuda.launches == before + 1
+    ref = grad(chol_and_inverse)
+    L, Li = cholesky_inverse_ref(A)
+    tol, _ = chol_tolerance(A, L, Li)
+    assert float((got - ref).abs().max()) <= tol["grad"] * float(
+        ref.abs().max())

@@ -214,7 +214,9 @@ def test_cuda_device_without_a_card_raises():
 def test_import_leaves_jax_out():
     code = ("import sys, scfgp_tpu_torch, scfgp_tpu_torch.models.model, "
             "scfgp_tpu_torch.data.datasets, scfgp_tpu_torch.utils.checkpoint,"
-            " scfgp_tpu_torch.ops.gram, scfgp_tpu_torch.ops.streaming;"
+            " scfgp_tpu_torch.ops.gram, scfgp_tpu_torch.ops.streaming,"
+            " scfgp_tpu_torch.ops.cholesky, scfgp_tpu_torch.utils.profiling,"
+            " scfgp_tpu_torch.experiments.chol_crossover;"
             "from scfgp_tpu_torch.ops import loss_fn_streaming;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
