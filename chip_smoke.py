@@ -26,7 +26,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    rounding model (chol_tolerance) on L Lᵀ - A, L⁻¹ L - I and the
    differences from the plain versions; strict upper triangles exactly 0,
    bitwise repeatable, gradients through the kernels' autograd Functions
-   against the plain ones, and an indefinite matrix that must return;
+   against the plain ones, and an indefinite matrix that must return with
+   every pivot positive; each n's times against the plain versions (and
+   their ratio), ``cholesky_ex``'s at n = 554, and ``diag_kernel``'s µs a
+   block column at n = 554 and 4096 from a profile;
 4. serve the kin8nm model trained by the JAX package
    (experiments/results/kin8nm/best_model.pkl): load, then predict request
    batches of 1, 17, 256 rows and the full 1639-row split;
@@ -66,7 +69,10 @@ every training phase must launch K1f and K1b, the streaming path K1f, K1b,
 K2f and K2b, the crossover K4 and K3, the posterior K3; the serving,
 training and streaming paths must launch neither K3 nor K4 (their
 posterior stays on torch's pair).  The line before the last is a JSON
-object with each kernel's launches, error and times; the last line is
+object with each kernel's launches, error and times, its bound (the
+larger of its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s,
+from this run's shapes) and the time of one library call for the same
+function where there is one; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 there is no CUDA device or no package beside it.
 """
@@ -94,6 +100,10 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CKPT = os.path.join(ROOT, "experiments", "results", "kin8nm",
                     "best_model.pkl")
 U32 = 2.0 ** -24  # float32 unit roundoff
+# Peak rates of one H100 SXM at its 700 W limit (NVIDIA's data sheet):
+# float32 outside the tensor cores, and HBM3.
+PEAK_FP32 = 67e12  # FLOP/s
+PEAK_HBM = 3.35e12  # bytes/s
 
 # Shapes (N, D, K) of phase 3: the served kin8nm model, the bench
 # configuration (S=50, M=200), ragged ones, and D=256 (synthetic_large).
@@ -142,6 +152,9 @@ CHOL_SIZES = [1, 37, 200, 500, 512, 554, 1024, 2048, 4096]
 CHOL_GRAD_SIZES = (37, 554)
 # Where a call's device time goes, by kernel (torch.profiler).
 CHOL_PROFILE_SIZES = (554, 4096)
+# K4's library call (torch.linalg.cholesky_ex, cuSOLVER) is timed at the
+# kin8nm posterior's n, the n of the kernels line.
+CHOL_LIBRARY_SIZE = 554
 
 # Shapes (N, D, K) of phases 3c and 3d: kin8nm, bench, ragged ones, the
 # streaming block of phase 9 (K = S + M = 256, D = 256), and one whose
@@ -339,6 +352,41 @@ def k2b_tolerance(X, F, p, s, y, w, cbar, pbar):
                         + K2_C * (e_ds.sum(dim=1) ** 2).sum().sqrt()))
 
 
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time an H100 could take for work of
+    ``flops`` FP32 operations moving ``nbytes``, the larger of the two at
+    the card's peak rates."""
+    ops_ms, bytes_ms = flops / PEAK_FP32 * 1e3, nbytes / PEAK_HBM * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
+
+
+# (FP32 operations, bytes) of each kernel's function at (N, D, K) or n,
+# float32: each input read once and each output written once.  sin and cos
+# are not counted.
+def k1f_work(n, d, k):  # T = X F + p; Φ (N, 2K) written
+    return 2 * n * d * k, 4 * (n * d + d * k + k + 1 + 2 * n * k)
+
+
+def k1b_work(n, d, k):  # T again, then Xᵀ dT; reads the gradient of Φ
+    return 4 * n * d * k, 4 * (n * d + 2 * (d * k + k + 1) + 2 * n * k)
+
+
+def k2f_work(n, d, k):  # T, then the upper triangle of ΦᵀΦ
+    return (2 * n * d * k + n * 2 * k * (2 * k + 1),
+            4 * (n * d + n + d * k + k + 1 + 4 * k * k + 2 * k + 2))
+
+
+def k2b_work(n, d, k):  # T, Φ Ā (N, 2K) x (2K, 2K), then Xᵀ dT
+    return (4 * n * d * k + 2 * n * (2 * k) ** 2,
+            4 * (n * d + n + 2 * (d * k + k + 1) + 4 * k * k + 2 * k))
+
+
+def chol_work(n, inverse):  # n³/3 for L, as much again for L⁻¹
+    return ((2 if inverse else 1) * n ** 3 / 3,
+            4 * n * n * (3 if inverse else 2))
+
+
 def chol_tolerance(A, L, Li):
     """Bounds of phase 3e (see CHOL_C), in float64 from the kernel's L and
     L⁻¹: reconstruction, inverse residual, L and L⁻¹ against the plain
@@ -409,10 +457,22 @@ def cholesky_phase(dev):
             k4_plain_call_ms=median_ms(p4, reps, inner),
             k3_call_ms=median_ms(k3, reps, inner),
             k3_plain_call_ms=median_ms(p3, reps, inner))
+        row.update(k4_vs_plain=row["k4_ms"] / row["k4_plain_ms"],
+                   k3_vs_plain=row["k3_ms"] / row["k3_plain_ms"])
+        if n == CHOL_LIBRARY_SIZE:
+            row["k4_library_ms"] = median_ms(
+                lambda: torch.linalg.cholesky_ex(A), reps, inner,
+                hide_host=True)
         if n in CHOL_PROFILE_SIZES:
             for name, fn in (("k4", k4), ("k3", k3)):
                 _, _, _, top = device_busy(fn, steps=3)
                 row[f"{name}_top_kernels_ms"] = top
+                diag_ms = [ms for key, ms in top.items()
+                           if "diag_kernel" in key]
+                check(len(diag_ms) == 1,
+                      f"no diag_kernel in the profile of {name} at n={n}")
+                row[f"{name}_diag_us_per_block"] = (
+                    diag_ms[0] * 1e3 / math.ceil(n / 64))
         if n in CHOL_GRAD_SIZES:
             g3, g3p = (grad(cholesky_inverse_kernel, A, loss3),
                        grad(chol_and_inverse, A, loss3))
@@ -433,18 +493,28 @@ def cholesky_phase(dev):
               f"K3/K4 gradients differ at n={n}: {row.get('grad_rel_err')}")
         rows[n] = row
 
-    # Not positive definite: the clamped pivot gives finite nonsense or
-    # inf, never an error or a hang.
-    rng = np.random.RandomState(1)
-    S = rng.randn(200, 200)
-    A = torch.as_tensor(S + S.T, dtype=torch.float32, device=dev)
+    # Not positive definite: the clamped pivot gives finite nonsense, inf
+    # or NaN below the diagonal, never an error or a hang; every pivot is
+    # in [1e-15, inf].
+    A = indefinite_input(dev)
     L, Li = cholesky_inverse_cuda(A)
     L4 = cholesky_cuda(A)
     torch.cuda.synchronize()
-    say("cholesky_indefinite", n=200, returned=True,
+    pivots_positive = all(bool((torch.diagonal(t) > 0).all()) for t in (L, L4))
+    say("cholesky_indefinite", n=A.shape[0], returned=True,
         finite=[bool(torch.isfinite(t).all()) for t in (L, Li, L4)],
+        nan=[bool(torch.isnan(t).any()) for t in (L, Li, L4)],
+        pivots_positive=pivots_positive,
         plain_nan=bool(torch.isnan(cholesky_ref(A)).any()))
+    check(pivots_positive, "K3/K4 gave a pivot that is not positive on the "
+          "indefinite matrix")
     return rows
+
+
+def indefinite_input(dev, n=200):
+    """S + Sᵀ, S = randn(n, n) from RandomState(1): not positive definite."""
+    S = np.random.RandomState(1).randn(n, n)
+    return torch.as_tensor(S + S.T, dtype=torch.float32, device=dev)
 
 
 def plain_fourier_features(params, X):
@@ -1192,31 +1262,39 @@ def main():
         cond_A=float(ev[-1] / ev[0]), post_rel_err=e_post, tol=POST_TOL,
         launches=counts)
 
+    row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",
-                k1["kin8nm"]),
+                k1["kin8nm"], k1f_work),
                ("phi_bwd", "csrc/phi_bwd.cu", "scfgp_tpu/ops/phi.py:73",
-                k1b["kin8nm"]),
+                k1b["kin8nm"], k1b_work),
                ("gram_fwd", "csrc/gram_fwd.cu", "scfgp_tpu/ops/gram.py:45",
-                k2f["block"]),
+                k2f["block"], k2f_work),
                ("gram_bwd", "csrc/gram_bwd.cu", "scfgp_tpu/ops/gram.py:85",
-                k2b["block"]),
+                k2b["block"], k2b_work),
                ("cholesky", "csrc/cholesky.cu",
                 "scfgp_tpu/ops/cholesky.py:160",
-                dict(max_abs_err=chol[554]["err"]["L_k4"],
-                     ms=chol[554]["k4_ms"],
-                     plain_ms=chol[554]["k4_plain_ms"])),
+                dict(n=row554["n"], max_abs_err=row554["err"]["L_k4"],
+                     ms=row554["k4_ms"], plain_ms=row554["k4_plain_ms"],
+                     library_ms=row554["k4_library_ms"]),
+                lambda n: chol_work(n, inverse=False)),
                ("cholesky_inverse", "csrc/cholesky.cu",
                 "scfgp_tpu/ops/cholesky.py:247",
-                dict(max_abs_err=max(chol[554]["err"]["L"],
-                                     chol[554]["err"]["Li"]),
-                     ms=chol[554]["k3_ms"],
-                     plain_ms=chol[554]["k3_plain_ms"]))]
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": "scfgp_tpu_torch/" + src,
-         "replaces": replaces, "launches": launches.total(name),
-         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-         "plain_ms": row["plain_ms"], "by_path": launches.of(name)}
-        for name, src, replaces, row in kernels]}), flush=True)
+                dict(n=row554["n"],
+                     max_abs_err=max(row554["err"]["L"], row554["err"]["Li"]),
+                     ms=row554["k3_ms"], plain_ms=row554["k3_plain_ms"]),
+                lambda n: chol_work(n, inverse=True))]
+    line = []
+    for name, src, replaces, row, work in kernels:
+        shape = [row[key] for key in ("n", "d", "k") if key in row]
+        bound_ms, bound_by = bound(*work(*shape))
+        line.append({
+            "name": name, "route": "cuda", "source": "scfgp_tpu_torch/" + src,
+            "replaces": replaces, "launches": launches.total(name),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": row.get("library_ms"),
+            "shape": shape, "by_path": launches.of(name)})
+    print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

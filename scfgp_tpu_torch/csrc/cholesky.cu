@@ -9,12 +9,13 @@
 // in global memory, so n is not bounded by a block's memory; the sequential
 // grid becomes a host loop of launches on one stream; n is not padded (the
 // last block column is ragged); the diagonal block is factored and inverted
-// by a column loop and a substitution in shared memory instead of the TPU's
-// sub-blocked masked reductions and log-depth Neumann products; and the
-// trailing update touches the lower triangle only instead of the whole
+// together, by one column loop over registers and shared memory, instead of
+// by the TPU's sub-blocked masked reductions and log-depth Neumann products;
+// and the trailing update touches the lower triangle only instead of the whole
 // matrix.  What carries over is what they compute: L with the pivot clamped
 // as sqrt(max(d, 1e-30)) (cholesky.py:134), so a matrix that is not
-// positive definite gives finite nonsense or inf, never an error or a hang;
+// positive definite gives every pivot in [1e-15, inf] and finite nonsense,
+// inf or NaN below the diagonal, never an error or a hang;
 // and for K3 the progressive block identity (cholesky.py:251-256)
 //
 //   inv([[T_k, 0], [R_k, L_kk]]) = [[W_k, 0], [-L_kk^-1 R_k W_k, L_kk^-1]]
@@ -23,9 +24,9 @@
 //
 // Per block column k (offset o, width w = min(64, n - o)), on the stream:
 //
-//   (a) diag_kernel, one block: L_kk = chol(A_kk) column by column in shared
-//       memory, then L_kk^-1 by substitution, one thread per column of the
-//       inverse, into a 64 x 64 scratch (and, for K3, L^-1's diagonal block);
+//   (a) diag_kernel, one block: L_kk = chol(A_kk) and L_kk^-1 by one loop of
+//       w column steps, each ending in one __syncthreads, into a 64 x 64
+//       scratch (and, for K3, L^-1's diagonal block);
 //   (d) K3 only, inverse_row_kernel: L^-1[o:o+w, 0:o] = -L_kk^-1 (R_k W_k),
 //       one block per 64 columns; the 64 x 64 tile of R_k W_k stays in
 //       shared memory, so no scratch of 64 x n floats is needed;
@@ -41,14 +42,19 @@
 // FMAs, no TF32.
 //
 // What bounds it on an H100: a Cholesky is latency-bound, not FLOP-bound.
-// The n/64 diagonal factors are serial, each 64 dependent column steps of
-// three __syncthreads, followed by a 64-step substitution; with the panel,
-// the trailing update and (K3) the row block that is 3-4 launches a block
-// column.  At n = 554 (the kin8nm posterior) that is 9 block columns and the
-// flops (n^3/3 = 5.7e7) are negligible; at n = 4096 it is 64 block columns
-// and ~1.1e10 FMAs of trailing update (K3 as much again in the row blocks),
-// at the ~12 TFLOP/s of the simple tile.  A persistent kernel, wgmma tiles
-// and a row block split along its depth are later work.
+// The n/64 diagonal blocks are serial, each 64 dependent column steps on one
+// SM.  A step is a barrier, a shared read of r_j, ~16 predicated FMAs a
+// thread on registers and the owner's rsqrt of the next pivot; the factor's
+// and the inverse's updates of a row i together touch its i + 1 entries, so
+// all 256 threads stay busy.  Measured on an H100 SXM (700 W): ~18.5 us a
+// block, of which ~5 us are the 64 barriers and most of the rest goes to
+// issuing ~100 instructions a step on two warps a scheduler.  With the
+// panel, the trailing update and (K3) the row block that is 3-4 launches a
+// block column.  At n = 554 (the kin8nm posterior) that is 9 block columns
+// and the flops (n^3/3 = 5.7e7) are negligible; at n = 4096 it is 64 block
+// columns and ~1.1e10 FMAs of trailing update (K3 as much again in the row
+// blocks), at the ~12 TFLOP/s of the simple tile.  Fewer launches a block
+// column, wgmma tiles and a row block split along its depth are later work.
 
 #include <cuda_runtime.h>
 
@@ -80,65 +86,131 @@ lower_copy_kernel(const float* __restrict__ A, float* __restrict__ L, int n) {
   }
 }
 
-// (a) Factor the w x w diagonal block at (o, o) of L and invert it.  dinv
-// receives L_kk^-1 as a TILE x TILE matrix, zero outside w x w and above the
-// diagonal; li, when not null, receives it in its diagonal block too.
+// (a) Factor the w x w diagonal block at (o, o) of L and invert it, in one
+// column loop with one __syncthreads a column and no substitution after it.
+// dinv receives L_kk^-1 as a TILE x TILE matrix, zero outside w x w and
+// above the diagonal; li, when not null, receives it in its diagonal block
+// too.
+//
+// Thread (ty, tx) keeps the entries (i, c) = (ty + 16a, tx + 16b) of a
+// 64 x 64 working matrix in registers.  Entry (i, c) holds S[i][c], the
+// block being factored, until column c is final, and from step c on R[i][c]
+// of the right-looking forward substitution of L_kk R = I: at step j, row j
+// of R is final and X[j] = R[j] / d_j, and every row i > j takes
+// R[i][c] -= L[i][j] X[j][c] for c <= j.  Columns stay unscaled: the step
+// reads L[i][j] as S[i][j] r_j, r_j = rsqrt(max(S[j][j], 1e-30)).  So step
+// j reads only r_j, column j of S and row j of R from shared memory, all
+// final, and writes there only what it makes final: column j + 1 of S, row
+// j + 1 of R and r_{j+1}, the last from the owner of entry (j + 1, j + 1).
+// One barrier ends the step.  At the end L[i][c] = S[i][c] r_c and
+// X[i][c] = R[i][c] r_i below the diagonal; on it, L[i][i] = d_i =
+// sqrt(max(S[i][i], 1e-30)) and X[i][i] = 1 / d_i, both correctly rounded.
+//
+// The steps run in four phases of 16 (q = j / 16), unrolled, so which of a
+// thread's 16 entries a step touches is mostly known at compile time: rows
+// a < q are finished, columns b < q are in R and b > q in S, and entries
+// above the diagonal (b > a) never change.
 __global__ void __launch_bounds__(THREADS)
 diag_kernel(float* __restrict__ L, float* __restrict__ li,
             float* __restrict__ dinv, int n, int o, int w) {
-  __shared__ float S[TILE][TILE + 1];  // the block, then L_kk
-  __shared__ float X[TILE][TILE + 1];  // L_kk^-1
+  constexpr int B = tile::TX;    // a thread's rows (columns) are B apart
+  constexpr int PER = TILE / B;  // rows and columns a thread keeps
+  static_assert(tile::TY == B && PER * B == TILE, "a square grid of threads");
+  __shared__ float S[TILE][TILE + 1];  // column j final from step j - 1 on
+  __shared__ float R[TILE][TILE + 1];  // row j final from step j - 1 on
+  __shared__ float r[TILE];            // r_j, from step j - 1 on
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
-  const int tid = ty * tile::TX + tx;
-  for (int idx = tid; idx < TILE * TILE; idx += THREADS) {
-    const int i = idx / TILE;
-    const int c = idx % TILE;
-    S[i][c] = (i < w && c <= i)
-                  ? L[static_cast<size_t>(o + i) * n + o + c]
-                  : 0.0f;
-    X[i][c] = 0.0f;
-  }
+
+  float m[PER][PER];
+#pragma unroll
+  for (int a = 0; a < PER; ++a)
+#pragma unroll
+    for (int b = 0; b < PER; ++b) {
+      const int i = ty + B * a;
+      const int c = tx + B * b;
+      m[a][b] = (i < w && c <= i) ? L[static_cast<size_t>(o + i) * n + o + c]
+                                  : 0.0f;
+      S[i][c] = m[a][b];
+      R[i][c] = i == c ? 1.0f : 0.0f;
+    }
+  if (tx == 0 && ty == 0) r[0] = rsqrtf(fmaxf(m[0][0], PIVOT_FLOOR));
   __syncthreads();
 
-  // Column j: pivot, scale the column below it, update the columns right of
-  // it (lower triangle only).
-  for (int j = 0; j < w; ++j) {
-    const float d = sqrtf(fmaxf(S[j][j], PIVOT_FLOOR));
-    __syncthreads();  // every thread has read S[j][j]
-    for (int i = j + tid; i < w; i += THREADS)
-      S[i][j] = i == j ? d : S[i][j] / d;
-    __syncthreads();
-    for (int i = j + 1 + ty; i < w; i += tile::TY)
-      for (int c = j + 1 + tx; c <= i; c += tile::TX)
-        S[i][c] = fmaf(-S[i][j], S[c][j], S[i][c]);
-    __syncthreads();
-  }
+#pragma unroll
+  for (int q = 0; q < PER; ++q) {
+    const int qn = q + 1 < PER ? q + 1 : q;  // the next phase
+    for (int jj = 0; jj < B; ++jj) {
+      const int j = q * B + jj;
+      if (j >= w) break;
+      const float rj = r[j];
+      float l[PER], x[PER];  // L[i][j] of my rows; X[j][c] or L[c][j]
+#pragma unroll
+      for (int a = q; a < PER; ++a) l[a] = S[ty + B * a][j] * rj;
+#pragma unroll
+      for (int b = 0; b < PER; ++b) {
+        const int c = tx + B * b;
+        const bool in_r = b < q || (b == q && tx <= jj);  // c <= j
+        x[b] = (in_r ? R[j][c] : S[c][j]) * rj;
+      }
+#pragma unroll
+      for (int a = q; a < PER; ++a) {
+        const bool below = a > q || ty > jj;  // i > j
+#pragma unroll
+        for (int b = 0; b <= a; ++b) {
+          if (b == q && tx == jj && (a > q || ty >= jj))
+            m[a][b] = (a == q && ty == jj) ? 1.0f : 0.0f;  // S ends, R begins
+          if (below && (b < a || tx <= ty))
+            m[a][b] = fmaf(-l[a], x[b], m[a][b]);
+        }
+      }
 
-  // L_kk^-1 by forward substitution, thread c owning column c:
-  // X[c][c] = 1 / L[c][c],
-  // X[i][c] = -(sum_{m=c}^{i-1} L[i][m] X[m][c]) / L[i][i].
-  if (tid < w) {
-    const int c = tid;
-    X[c][c] = 1.0f / S[c][c];
-    for (int i = c + 1; i < w; ++i) {
-      float s = 0.0f;
-      for (int m = c; m < i; ++m) s = fmaf(S[i][m], X[m][c], s);
-      X[i][c] = -s / S[i][i];
+      // Publish column j + 1 of S below row j (my entries of column
+      // tx == (j + 1) % B), row j + 1 of R up to column j (of row
+      // ty == (j + 1) % B) and r_{j+1}.  j + 1 opens phase qn if last.
+      const bool last = jj == B - 1;
+      const int next = last ? 0 : jj + 1;
+      if (j + 1 < w) {
+        if (tx == next) {
+#pragma unroll
+          for (int a = q; a < PER; ++a)
+            if (a > q || (!last && ty > jj))
+              S[ty + B * a][j + 1] = last ? m[a][qn] : m[a][q];
+        }
+        if (ty == next) {
+#pragma unroll
+          for (int b = 0; b <= q; ++b)
+            if (b < q || tx <= jj)
+              R[j + 1][tx + B * b] = last ? m[qn][b] : m[q][b];
+          if (tx == next)
+            r[j + 1] = rsqrtf(fmaxf(last ? m[qn][qn] : m[q][q], PIVOT_FLOOR));
+        }
+      }
+      __syncthreads();
     }
   }
-  __syncthreads();
 
-  for (int idx = tid; idx < TILE * TILE; idx += THREADS) {
-    const int i = idx / TILE;
-    const int c = idx % TILE;
-    dinv[idx] = X[i][c];
-    if (i < w && c < w) {
-      const size_t at = static_cast<size_t>(o + i) * n + o + c;
-      L[at] = c <= i ? S[i][c] : 0.0f;
-      if (li != nullptr) li[at] = X[i][c];
+#pragma unroll
+  for (int a = 0; a < PER; ++a)
+#pragma unroll
+    for (int b = 0; b < PER; ++b) {
+      const int i = ty + B * a;
+      const int c = tx + B * b;
+      float lic = 0.0f, xic = 0.0f;
+      if (i < w && c < i) {
+        lic = S[i][c] * r[c];
+        xic = m[a][b] * r[i];
+      } else if (i < w && c == i) {
+        lic = sqrtf(fmaxf(S[i][i], PIVOT_FLOOR));
+        xic = 1.0f / lic;
+      }
+      dinv[i * TILE + c] = xic;
+      if (i < w && c < w) {
+        const size_t at = static_cast<size_t>(o + i) * n + o + c;
+        L[at] = lic;
+        if (li != nullptr) li[at] = xic;
+      }
     }
-  }
 }
 
 // (b) P = C L_kk^-T on the rows below the diagonal block, in place in

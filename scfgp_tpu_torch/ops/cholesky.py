@@ -17,8 +17,9 @@ The port of ``scfgp_tpu/ops/cholesky.py``.  Two versions of each:
 
 A matrix that is not positive definite: the kernels clamp each pivot to
 ``sqrt(max(d, 1e-30))`` as the Pallas kernel does
-(``scfgp_tpu/ops/cholesky.py:134``), so they return finite nonsense or inf
-without an error; the plain versions return NaN in the lower triangle, as
+(``scfgp_tpu/ops/cholesky.py:134``), so they return without an error, every
+pivot in [1e-15, inf] and finite nonsense, inf or NaN (inf - inf) below
+the diagonal; the plain versions return NaN in the lower triangle, as
 ``models/objective.py::chol_and_inverse`` and JAX's cholesky do.
 
 ``cholesky_kernel`` and ``cholesky_inverse_kernel`` are the entries, the

@@ -250,3 +250,19 @@ def test_debug_numerics_names_the_op_that_made_nan():
     x = torch.tensor([-1.0], requires_grad=True)
     with debug_numerics(), pytest.raises(RuntimeError, match="Sqrt"):
         torch.sqrt(x).sum().backward()
+
+
+def test_chol_variants_edits_the_source_and_needs_a_card():
+    """The variant timer cuts 1-based line ranges, then applies each
+    replacement exactly once; it refuses to run without a card."""
+    from scfgp_tpu_torch.experiments import chol_variants
+    text = "a\nb\nc\nd\ne\n"
+    assert chol_variants.edit_source(text, drop=[(2, 3)]) == "a\nd\ne\n"
+    assert chol_variants.edit_source(
+        text, drop=[(5, 5)], replace=[("b\\nc", "x")]) == "a\nx\nd\n"
+    with pytest.raises(ValueError, match="occurs 0 times"):
+        chol_variants.edit_source(text, replace=[("z", "y")])
+    with pytest.raises(ValueError, match="occurs 2 times"):
+        chol_variants.edit_source("q\nq\n", replace=[("q", "y")])
+    if not torch.cuda.is_available():
+        assert chol_variants.main(["--sizes", "64"]) == 1

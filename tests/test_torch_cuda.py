@@ -23,7 +23,7 @@ from scfgp_tpu_torch.models.params import init_params
 from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
                                           cholesky_inverse_cuda,
                                           cholesky_inverse_kernel,
-                                          cholesky_inverse_ref)
+                                          cholesky_inverse_ref, cholesky_ref)
 from scfgp_tpu_torch.ops.gram import (gram_bwd_ref, sufficient_stats_bwd_cuda,
                                       sufficient_stats_cuda,
                                       sufficient_stats_ref)
@@ -34,8 +34,8 @@ from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
-from chip_smoke import (chol_tolerance, k2b_tolerance,  # noqa: E402
-                        k2f_tolerance)
+from chip_smoke import (chol_tolerance, indefinite_input,  # noqa: E402
+                        k2b_tolerance, k2f_tolerance)
 
 torch.set_num_threads(1)
 # Ragged shapes, the served kin8nm model's (N=6553, 2K=554) and D=256.
@@ -314,10 +314,12 @@ def test_streaming_on_card_matches_host_float64(cuda_device, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 37, 65, 200, 554, 1024])
+@pytest.mark.parametrize("n", [1, 37, 63, 64, 65, 128, 129, 200, 554, 1024])
 def test_cholesky_kernels_match_plain_and_repeat_bitwise(cuda_device, n):
     """K4 and K3 against torch's pair within chip_smoke.py's rounding-model
-    bounds (chol_tolerance); strict upper triangles exactly 0."""
+    bounds (chol_tolerance); strict upper triangles exactly 0.  63 to 129
+    end or start a 64-wide block column; 129 leaves a last block of width
+    1."""
     A = spd_input(n, cuda_device)
     before = (cholesky_cuda.launches, cholesky_inverse_cuda.launches)
     L4 = [cholesky_cuda(A) for _ in range(2)]
@@ -339,6 +341,22 @@ def test_cholesky_kernels_match_plain_and_repeat_bitwise(cuda_device, n):
         assert not torch.triu(got, 1).any()
     assert float((Li - Lip).abs().max()) <= tol["Li"]
     assert not torch.triu(Li, 1).any()
+
+
+@pytest.mark.cuda
+def test_cholesky_kernels_return_on_an_indefinite_matrix(cuda_device):
+    """The clamped pivot sqrt(max(d, 1e-30)): no error and no hang, every
+    pivot in [1e-15, inf], strict upper triangles still 0, where torch's
+    factor gives NaN."""
+    A = indefinite_input(cuda_device)
+    L, Li = cholesky_inverse_cuda(A)
+    L4 = cholesky_cuda(A)
+    torch.cuda.synchronize()
+    for got in (L, L4):
+        assert bool((torch.diagonal(got) > 0).all())
+    for got in (L, Li, L4):
+        assert got.shape == A.shape and not torch.triu(got, 1).any()
+    assert bool(torch.isnan(cholesky_ref(A)).any())
 
 
 @pytest.mark.cuda
