@@ -11,9 +11,10 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 2. build the CUDA kernels K1f (csrc/phi_fwd.cu), K1b (csrc/phi_bwd.cu),
    K2f (csrc/gram_fwd.cu), K2b (csrc/gram_bwd.cu), and K4 and K3
    (csrc/cholesky.cu) from this checkout, one nvcc each, started together;
-3. K1f against its plain PyTorch version on the card at the slice's shapes,
-   with both times (CUDA events, median of repeats): device time (``ms``)
-   and time per call with the host's share (``call_ms``);
+3. K1f against its plain PyTorch version on the card at the slice's shapes
+   (kin8nm, bench, ragged, D=256 and the streaming block), with both times
+   (CUDA events, median of repeats): device time (``ms``) and time per call
+   with the host's share (``call_ms``);
 3b. K1b the same way, against ``phi_bwd_ref`` and against autograd through
    the plain feature map, with a stated error bound; the same call twice
    must give bitwise equal gradients;
@@ -105,11 +106,17 @@ U32 = 2.0 ** -24  # float32 unit roundoff
 PEAK_FP32 = 67e12  # FLOP/s
 PEAK_HBM = 3.35e12  # bytes/s
 
+# Phase 9: the defaults of experiments/tpu_streaming_1m.py:32-33, uncut.
+STREAM = dict(N=1_000_000, D=256, S=56, M=200, block=16384, steps=5)
+# (N, D, K) of one block of phase 9, where pass 2 launches K1f and K1b and
+# pass 1 K2f and K2b.
+STREAM_BLOCK = (STREAM["block"], STREAM["D"], STREAM["S"] + STREAM["M"])
 # Shapes (N, D, K) of phase 3: the served kin8nm model, the bench
-# configuration (S=50, M=200), ragged ones, and D=256 (synthetic_large).
+# configuration (S=50, M=200), ragged ones, D=256 (synthetic_large) and the
+# streaming block.
 K1_SHAPES = [("kin8nm", 6553, 8, 277), ("bench", 8192, 8, 250),
              ("ragged-1", 1, 3, 37), ("ragged-777", 777, 3, 37),
-             ("d256", 4096, 256, 500)]
+             ("d256", 4096, 256, 500), ("block", *STREAM_BLOCK)]
 # Kernel and plain feature maps differ by float32 rounding of T (|T| reaches
 # tens).  Measured on the CPU, a Phi perturbation of that size moves each
 # field of the kin8nm posterior by at most 3e-4 of its largest entry (alpha,
@@ -162,10 +169,8 @@ CHOL_LIBRARY_SIZE = 554
 # JAX package's streaming blocks).
 K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
              ("ragged-1", 1, 3, 37, False), ("ragged-777", 777, 3, 37, False),
-             ("block", 16384, 256, 256, False),
+             ("block", *STREAM_BLOCK, False),
              ("weighted", 5000, 16, 100, True)]
-# Phase 9: the defaults of experiments/tpu_streaming_1m.py:32-33, uncut.
-STREAM = dict(N=1_000_000, D=256, S=56, M=200, block=16384, steps=5)
 # The kernel route, the GEMM route and the dense path each sum the 1e6 rows
 # of the statistics in float32 in another order: by the probabilistic
 # rounding model (Higham and Mary 2019) each statistic is off by at most

@@ -16,279 +16,207 @@
 // Here the quadrants are one product phi Abar, and the sums over rows take
 // fixed orders without atomics, so the gradient is bitwise repeatable.
 //
-// Design: Abar is formed once (abar_kernel).  The rows are taken in chunks
-// of at most CHUNK_BUDGET bytes of scratch (phi and dT of the chunk: 2688
-// rows at K = 256), and for each chunk
+// Design, every product on the 128 x 128 register-blocked tile of
+// sgemm_tile.cuh.  abar_kernel forms Abar once with its columns
+// interleaved, column 2j the cos and 2j + 1 the sin column of feature j.
+// The rows are taken in chunks (plan: as few as fit CHUNK_BUDGET bytes of
+// phi^T and dT, of equal size; at the streaming block one chunk of 16384
+// rows, 48 MB), and for each chunk
 //
-//   1. features::feature_kernel writes the chunk's unscaled phi, each
-//      cos/sin computed once;
-//   2. g_kernel: block (row tile, feature tile) computes a 64-row x 64-column
-//      tile of phi Abar whose columns are the cos and the sin column of 32
-//      features j, interleaved, so that one thread holds G_cos and G_sin of
-//      the same j; its epilogue forms G, then dT (stored for the chunk) and
-//      the block's share of ds, added to the block's own ds slot;
-//   3. dfcat_kernel: block (tile of dFcat, row group) sums X^T dT over the
-//      chunk's 32-row steps group, group + G, ... into its own slot, with
-//      dpcat for the tiles of the first D rows, as K1b (phi_bwd.cu) does;
+//   1. phi_kernel: T by the tile (X m-major through registers, Fcat
+//      k-major); the epilogue's precise sincosf writes the chunk's unscaled
+//      phi transposed, phi^T (2K, rows), k-major for the next product;
+//   2. g_kernel: the tile of phi Abar over the interleaved columns, so that
+//      one thread holds G_cos and G_sin of the same feature; its epilogue
+//      forms G, then dT (stored for the chunk), and sums dpcat and ds of
+//      the block into the block's slots (dfcat::block_sums);
+//   3. dfcat::dfcat_kernel: X^T dT, split over row groups into slots, the
+//      routine K1b (phi_bwd.cu) ends in too;
 //
-// and then 4. bwd_reduce_kernel adds the slots in a fixed order, one thread
-// per output.  Each slot entry is read, added to and written by one thread,
-// chunk after chunk.
+// and then 4. dfcat::bwd_reduce_kernel adds the slots in a fixed order.
+// Each slot entry is read, added to and written by one thread, chunk after
+// chunk.  At the streaming block the chunk gives 256 tiles of T, 512 of
+// phi Abar and 4 tiles x 64 groups of X^T dT, each two waves or more on 132
+// SMs; two chunks of 8192 rows took 14% longer (PERF.md, PR 7).
 //
 // What bounds it on an H100, per row: D * K FMAs for T and a sincosf per
 // (row, feature); (2K)^2 FMAs for phi Abar; D * K FMAs for X^T dT.  At the
 // streaming block of the N=1e6, D=256, S=56, M=200 configuration (K = 256):
-// 65,536 + 262,144 + 65,536 = 393,216 FMAs a row, 6.4 G FMAs for a
-// 16,384-row block, on the FP32 pipes (TF32 is off by the port's precision
-// policy).  The plain PyTorch version does the same products as three
-// cuBLAS SGEMMs, which a first, simple 64 x 64 tile (tile_mma.cuh) is not
-// expected to beat; wgmma and TMA are later work.
+// 65,536 + 262,144 + 65,536 = 393,216 FMAs a row, 12.9 GFLOP for a
+// 16,384-row block, 0.192 ms at 67 TFLOP/s on the FP32 pipes (TF32 is off
+// by the port's precision policy).  Registers and shared memory (ptxas,
+// sm_90a), no spills: phi_kernel 123 and 16,896 bytes, g_kernel 117 and
+// 16,896, dfcat_kernel 128 and 16,896.  Device time on an NVIDIA H100 80GB
+// HBM3 at 700.00 W (experiments/kernel_ab.py, PERF.md PR 7): 0.389 ms at
+// the streaming block (g_kernel 224 us, ~38 TFLOP/s; phi_kernel 75;
+// dfcat_kernel 65; the reduce 15), against 1.082 for the previous 64 x 64
+// tile and 0.651 for the plain version's cuBLAS products; 0.176 ms at
+// kin8nm (0.310).
 //
-// Precision: precise sincosf (features.cuh), fp32 FMAs and accumulation.
+// Precision: precise sincosf, fp32 FMAs and accumulation.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "features.cuh"
-#include "tile_mma.cuh"
+#include "dfcat.cuh"
+#include "sgemm_tile.cuh"
 
 namespace {
 
-using tile::KC;
-using tile::MICRO;
-using tile::THREADS;
-using tile::TILE;
-
-constexpr size_t CHUNK_BUDGET = size_t(8) << 20;    // bytes of phi and dT
-constexpr size_t PARTIAL_BUDGET = size_t(16) << 20;  // bytes of slots
-constexpr int TARGET_BLOCKS = 2 * 132;
-constexpr int HALF = TILE / 2;  // features j in one tile of phi Abar
+constexpr size_t CHUNK_BUDGET = size_t(48) << 20;  // bytes of phi^T and dT
 constexpr int REDUCE_THREADS = 256;
 
 struct Plan {
   int k2;
-  int chunk_rows;  // a multiple of TILE
-  int jtiles;      // feature tiles of g_kernel
-  int ds_slots;    // one per (row tile of a chunk, feature tile)
-  int dtiles, ktiles;
+  int ld2;         // row pitch of the interleaved Abar, a multiple of 4
+  int kpad;        // row pitch of dT
+  int chunk_rows;  // a multiple of BM, also the row pitch of phi^T
+  int rtiles;      // row tiles of a chunk: the dpcat slots
+  int gtiles;      // column tiles of phi Abar
   int groups;      // row groups of dfcat_kernel
-  size_t width;    // floats in one group's slot: dFcat (d * k) and dpcat (k)
 };
 
 // Depends on the shapes alone, so the order of every sum does too.
 Plan plan(int n, int d, int k) {
   Plan p;
   p.k2 = 2 * k;
-  size_t rows = CHUNK_BUDGET / (static_cast<size_t>(3) * k * sizeof(float));
-  rows = rows / TILE * TILE;
-  const size_t all = (static_cast<size_t>(n) + TILE - 1) / TILE * TILE;
-  if (rows > all) rows = all;
-  if (rows < TILE) rows = TILE;
-  p.chunk_rows = static_cast<int>(rows);
-  p.jtiles = (k + HALF - 1) / HALF;
-  p.ds_slots = static_cast<int>(rows / TILE) * p.jtiles;
-  p.dtiles = (d + TILE - 1) / TILE;
-  p.ktiles = (k + TILE - 1) / TILE;
-  p.width = static_cast<size_t>(d) * k + k;
-  const int tiles = p.dtiles * p.ktiles;
-  size_t g = (TARGET_BLOCKS + tiles - 1) / tiles;
-  const size_t by_memory = PARTIAL_BUDGET / (p.width * sizeof(float));
-  if (g > by_memory) g = by_memory;
-  if (g > rows / KC) g = rows / KC;
-  p.groups = g < 1 ? 1 : static_cast<int>(g);
+  p.ld2 = dfcat::round4(p.k2);
+  p.kpad = dfcat::round4(k);
+  const size_t per_row = (static_cast<size_t>(p.k2) + p.kpad) * sizeof(float);
+  size_t most = CHUNK_BUDGET / per_row / sgemm::BM * sgemm::BM;
+  if (most < static_cast<size_t>(sgemm::BM)) most = sgemm::BM;
+  const size_t chunks = (static_cast<size_t>(n) + most - 1) / most;
+  const size_t rows = (static_cast<size_t>(n) + chunks - 1) / chunks;
+  p.chunk_rows = dfcat::tiles(static_cast<int>(rows)) * sgemm::BM;
+  p.rtiles = p.chunk_rows / sgemm::BM;
+  p.gtiles = dfcat::tiles(p.k2);
+  p.groups = dfcat::groups(p.chunk_rows, d, k);
   return p;
 }
 
+// Abar with interleaved columns: abar[c][2j + h] = Abar[c][h K + j].
 __global__ void abar_kernel(const float* __restrict__ cbar,
-                            float* __restrict__ abar, int k2) {
+                            float* __restrict__ abar, int k, int ld2) {
+  const int k2 = 2 * k;
   const size_t idx = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
   if (idx >= static_cast<size_t>(k2) * k2) return;
-  const size_t i = idx / k2;
-  const size_t j = idx % k2;
-  abar[idx] = cbar[idx] + cbar[j * k2 + i];
+  const size_t c = idx / k2;
+  const int col = static_cast<int>(idx % k2);
+  const size_t src = (col & 1) * static_cast<size_t>(k) + (col >> 1);
+  abar[c * ld2 + col] = cbar[c * k2 + src] + cbar[src * k2 + c];
 }
 
-// Sum of v over the block's threads by a fixed tree; valid in thread 0.
-__device__ float block_sum(float v, float* red, int tid) {
-  red[tid] = v;
-  __syncthreads();
-  for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red[tid] += red[tid + stride];
-    __syncthreads();
+// One chunk: phiT[j][r] = cos T[r][j], phiT[K + j][r] = sin T[r][j] for the
+// chunk's rows r (row pitch ldp), X offset to the chunk.
+__global__ void __launch_bounds__(sgemm::THREADS, 2)
+phi_kernel(sgemm::Operand X, sgemm::Operand F,
+           const float* __restrict__ pcat, float* __restrict__ phiT, int d,
+           int k, int ldp) {
+  __shared__ __align__(16) sgemm::Smem sm;
+  const int tid = threadIdx.x;
+  const int tx = sgemm::thread_x(tid);
+  const int ty = sgemm::thread_y(tid);
+  const int m0 = blockIdx.x * sgemm::BM;
+  const int n0 = blockIdx.y * sgemm::BM;
+
+  float acc[sgemm::MICRO][sgemm::MICRO];
+  sgemm::product<false, true>(X, F, d, m0, n0, sm, acc);
+
+  // Rows past the chunk's end hold T = pcat: finite, and never read.
+#pragma unroll
+  for (int b = 0; b < sgemm::MICRO; ++b) {
+    const int j = n0 + sgemm::col_of(b, tx);
+    if (j >= k) continue;
+    const float p = pcat[j];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float c[4], sn[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) sincosf(acc[4 * h + a][b] + p, &sn[a], &c[a]);
+      const size_t r = m0 + 64 * h + ty * 4;
+      *reinterpret_cast<float4*>(phiT + static_cast<size_t>(j) * ldp + r) =
+          make_float4(c[0], c[1], c[2], c[3]);
+      *reinterpret_cast<float4*>(phiT + static_cast<size_t>(k + j) * ldp +
+                                 r) = make_float4(sn[0], sn[1], sn[2], sn[3]);
+    }
   }
-  return red[0];
 }
 
-// One chunk: phi (rows, k2) unscaled, y and w offset to the chunk; writes
-// dT (rows, k) and adds to the ds slots.
-__global__ void __launch_bounds__(THREADS)
-g_kernel(const float* __restrict__ phi, const float* __restrict__ abar,
+// One chunk: G and dT from phi^T (row pitch ldp) and the interleaved Abar;
+// y and w offset to the chunk.  Writes dT (rows, kpad) and adds to the
+// dpcat slots (rtiles x k) and the ds slots (rtiles x gtiles).
+__global__ void __launch_bounds__(sgemm::THREADS, 2)
+g_kernel(sgemm::Operand P, sgemm::Operand Ab, const float* __restrict__ phiT,
          const float* __restrict__ y, const float* __restrict__ w,
          const float* __restrict__ pbar, const float* __restrict__ scale,
-         float* __restrict__ dT, float* __restrict__ ds_part, int rows, int k,
+         float* __restrict__ dT, float* __restrict__ dp_part,
+         float* __restrict__ ds_part, int rows, int k, int ldp, int kpad,
          bool first) {
-  __shared__ __align__(16) tile::Stage As;  // As[kk][i] = phi[r0 + i][k0 + kk]
-  __shared__ __align__(16) tile::Stage Bs;  // Bs[kk][c] = Abar[k0 + kk][col c]
-  __shared__ float red[THREADS];
+  __shared__ __align__(16) sgemm::Smem sm;
+  const int tid = threadIdx.x;
+  const int tx = sgemm::thread_x(tid);
+  const int ty = sgemm::thread_y(tid);
+  const int m0 = blockIdx.x * sgemm::BM;
+  const int n0 = blockIdx.y * sgemm::BM;
+  const int f0 = n0 / 2;  // the tile's first feature
 
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * tile::TX + tx;
-  const int k2 = 2 * k;
-  const int r0 = blockIdx.x * TILE;
-  const int j0 = blockIdx.y * HALF;
+  float acc[sgemm::MICRO][sgemm::MICRO];
+  sgemm::product<true, true>(P, Ab, 2 * k, m0, n0, sm, acc);
 
-  float acc[MICRO][MICRO];
-  tile::zero(acc);
-  for (int k0 = 0; k0 < k2; k0 += KC) {
-    // Neighbouring threads read neighbouring features of one row.
-    for (int idx = tid; idx < KC * TILE; idx += THREADS) {
-      const int kk = idx % KC;
-      const int i = idx / KC;
-      const int r = r0 + i;
-      const int kc = k0 + kk;
-      As[kk][i] = (r < rows && kc < k2)
-                      ? phi[static_cast<size_t>(r) * k2 + kc] : 0.0f;
-    }
-    // Column c of the tile: the cos (c even) or sin (c odd) column of
-    // feature j0 + c / 2.
-    for (int idx = tid; idx < KC * TILE; idx += THREADS) {
-      const int kk = idx / TILE;
-      const int c = idx % TILE;
-      const int jj = j0 + c / 2;
-      const int kc = k0 + kk;
-      Bs[kk][c] = (kc < k2 && jj < k)
-                      ? abar[static_cast<size_t>(kc) * k2 + (c & 1) * k + jj]
-                      : 0.0f;
-    }
-    __syncthreads();
-    tile::mma(As, Bs, acc, tx, ty);
-    __syncthreads();
-  }
-
+  // Accumulator columns 2q and 2q + 1 are G_cos and G_sin of feature
+  // f0 + jl[q].
   const float s = *scale;
-  float ds_acc = 0.0f;
+  int jl[4];
+  float pc[4], ps[4];
 #pragma unroll
-  for (int a = 0; a < MICRO; ++a) {
-    const int r = r0 + ty * MICRO + a;
+  for (int q = 0; q < 4; ++q) {
+    jl[q] = (q < 2 ? 0 : 32) + tx * 2 + (q & 1);
+    const int j = f0 + jl[q];
+    pc[q] = j < k ? pbar[j] : 0.0f;
+    ps[q] = j < k ? pbar[k + j] : 0.0f;
+  }
+  float dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  float ds = 0.0f;
+#pragma unroll
+  for (int a = 0; a < sgemm::MICRO; ++a) {
+    const int r = m0 + sgemm::row_of(a, ty);
     if (r >= rows) continue;
     const float wr = w != nullptr ? w[r] : 1.0f;
     const float yr = y[r];
-    const size_t at = static_cast<size_t>(r) * k2;
 #pragma unroll
-    for (int q = 0; q < MICRO / 2; ++q) {
-      const int jj = j0 + tx * (MICRO / 2) + q;
-      if (jj >= k) continue;
-      const float g_cos = wr * (s * acc[a][2 * q] + yr * pbar[jj]);
-      const float g_sin = wr * (s * acc[a][2 * q + 1] + yr * pbar[k + jj]);
-      const float c = phi[at + jj];
-      const float sn = phi[at + k + jj];
-      dT[static_cast<size_t>(r) * k + jj] = s * (g_sin * c - g_cos * sn);
-      ds_acc += g_cos * c + g_sin * sn;
-    }
-  }
-  const float v = block_sum(ds_acc, red, tid);
-  if (tid == 0) {
-    float* slot = ds_part + blockIdx.x * gridDim.y + blockIdx.y;
-    *slot = first ? v : *slot + v;
-  }
-}
-
-// One chunk: X and dT offset to the chunk; block (tile, group) adds its
-// rows' X^T dT (and, for the tiles of the first D rows, sum dT) to its
-// slot.
-__global__ void __launch_bounds__(THREADS)
-dfcat_kernel(const float* __restrict__ X, const float* __restrict__ dT,
-             float* __restrict__ part, size_t width, int rows, int d, int k,
-             int ktiles, bool first) {
-  __shared__ __align__(16) tile::Stage As;  // As[kk][i] = X[r0 + kk][d0 + i]
-  __shared__ __align__(16) tile::Stage Bs;  // Bs[kk][c] = dT[r0 + kk][j0 + c]
-
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * tile::TX + tx;
-  const int d0 = (blockIdx.x / ktiles) * TILE;
-  const int j0 = (blockIdx.x % ktiles) * TILE;
-  const bool sums = d0 == 0 && ty == 0;  // these threads also sum dpcat
-  float* slot = part + blockIdx.y * width;
-
-  float acc[MICRO][MICRO];
-  tile::zero(acc);
-  float dp[MICRO] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const int steps = (rows + KC - 1) / KC;
-  for (int st = blockIdx.y; st < steps; st += gridDim.y) {
-    const int r0 = st * KC;
-    for (int idx = tid; idx < KC * TILE; idx += THREADS) {
-      const int kk = idx / TILE;
-      const int c = idx % TILE;
-      const int r = r0 + kk;
-      As[kk][c] = (r < rows && d0 + c < d)
-                      ? X[static_cast<size_t>(r) * d + d0 + c] : 0.0f;
-      Bs[kk][c] = (r < rows && j0 + c < k)
-                      ? dT[static_cast<size_t>(r) * k + j0 + c] : 0.0f;
-    }
-    __syncthreads();
-    tile::mma(As, Bs, acc, tx, ty);
-    if (sums) {
-      for (int kk = 0; kk < KC; ++kk)
-#pragma unroll
-        for (int b = 0; b < MICRO; ++b) dp[b] += Bs[kk][tx * MICRO + b];
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int a = 0; a < MICRO; ++a) {
-    const int i = d0 + ty * MICRO + a;
-    if (i >= d) continue;
-#pragma unroll
-    for (int b = 0; b < MICRO; ++b) {
-      const int j = j0 + tx * MICRO + b;
+    for (int q = 0; q < 4; ++q) {
+      const int j = f0 + jl[q];
       if (j >= k) continue;
-      float* o = slot + static_cast<size_t>(i) * k + j;
-      *o = first ? acc[a][b] : *o + acc[a][b];
+      const float g_cos = wr * (s * acc[a][2 * q] + yr * pc[q]);
+      const float g_sin = wr * (s * acc[a][2 * q + 1] + yr * ps[q]);
+      const float c = phiT[static_cast<size_t>(j) * ldp + r];
+      const float sn = phiT[static_cast<size_t>(k + j) * ldp + r];
+      const float dt = s * (g_sin * c - g_cos * sn);
+      dT[static_cast<size_t>(r) * kpad + j] = dt;
+      ds += g_cos * c + g_sin * sn;
+      dp[q] += dt;
     }
   }
-  if (sums) {
-#pragma unroll
-    for (int b = 0; b < MICRO; ++b) {
-      const int j = j0 + tx * MICRO + b;
-      if (j >= k) continue;
-      float* o = slot + static_cast<size_t>(d) * k + j;
-      *o = first ? dp[b] : *o + dp[b];
-    }
-  }
-}
-
-// out = [dFcat (d * k) | dpcat (k) | ds]: the groups' slots added in the
-// order g = 0..groups-1, and the ds slots in index order.
-__global__ void __launch_bounds__(REDUCE_THREADS)
-bwd_reduce_kernel(const float* __restrict__ part,
-                  const float* __restrict__ ds_part, float* __restrict__ out,
-                  int groups, size_t width, int ds_slots) {
-  const size_t j = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
-  if (j < width) {
-    float v = 0.0f;
-    for (int g = 0; g < groups; ++g) v += part[g * width + j];
-    out[j] = v;
-  } else if (j == width) {
-    float v = 0.0f;
-    for (int i = 0; i < ds_slots; ++i) v += ds_part[i];
-    out[j] = v;
-  }
+  dfcat::block_sums<4>(dp, jl, sgemm::BM / 2, ds,
+                       reinterpret_cast<float*>(&sm),
+                       dp_part + static_cast<size_t>(blockIdx.x) * k + f0,
+                       min(sgemm::BM / 2, k - f0),
+                       ds_part + blockIdx.x * gridDim.y + blockIdx.y, first);
 }
 
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Floats of workspace the call
-// needs for these shapes: Abar, one chunk of phi and dT, the ds slots and
-// the groups' slots.
+// needs for these shapes: Abar, one chunk of phi^T and dT, the group slots,
+// the dpcat and the ds slots.
 extern "C" size_t scfgp_gram_bwd_workspace(int n, int d, int k) {
   const Plan p = plan(n, d, k);
-  return static_cast<size_t>(p.k2) * p.k2 +
-         static_cast<size_t>(p.chunk_rows) * (p.k2 + k) + p.ds_slots +
-         p.groups * p.width;
+  return static_cast<size_t>(p.k2) * p.ld2 +
+         static_cast<size_t>(p.chunk_rows) * (p.k2 + p.kpad) +
+         static_cast<size_t>(p.groups) * d * k +
+         static_cast<size_t>(p.rtiles) * k +
+         static_cast<size_t>(p.rtiles) * p.gtiles;
 }
 
 // Every pointer is a device pointer to contiguous float32 data: X (n, d),
@@ -307,43 +235,42 @@ extern "C" int scfgp_gram_bwd_f32(const float* X, const float* y,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Plan p = plan(n, d, k);
   float* abar = work;
-  float* phi = abar + static_cast<size_t>(p.k2) * p.k2;
-  float* dT = phi + static_cast<size_t>(p.chunk_rows) * p.k2;
-  float* ds_part = dT + static_cast<size_t>(p.chunk_rows) * k;
-  float* part = ds_part + p.ds_slots;
+  float* phiT = abar + static_cast<size_t>(p.k2) * p.ld2;
+  float* dT = phiT + static_cast<size_t>(p.k2) * p.chunk_rows;
+  float* part = dT + static_cast<size_t>(p.chunk_rows) * p.kpad;
+  float* dp_part = part + static_cast<size_t>(p.groups) * d * k;
+  float* ds_part = dp_part + static_cast<size_t>(p.rtiles) * k;
 
   const size_t square = static_cast<size_t>(p.k2) * p.k2;
   abar_kernel<<<static_cast<unsigned>((square + REDUCE_THREADS - 1) /
                                       REDUCE_THREADS),
-                REDUCE_THREADS, 0, st>>>(cbar, abar, p.k2);
+                REDUCE_THREADS, 0, st>>>(cbar, abar, k, p.ld2);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const dim3 block(tile::TX, tile::TY);
+  const sgemm::Operand F = sgemm::operand(Fcat, k, k);
+  const sgemm::Operand Ab = sgemm::operand(abar, p.ld2, p.k2);
   for (int row0 = 0; row0 < n; row0 += p.chunk_rows) {
     const int rows = min(p.chunk_rows, n - row0);
     const bool first = row0 == 0;
-    err = features::launch(X + static_cast<size_t>(row0) * d, Fcat, pcat,
-                           nullptr, phi, rows, d, k, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 g_grid((rows + TILE - 1) / TILE, p.jtiles);
-    g_kernel<<<g_grid, block, 0, st>>>(
-        phi, abar, y + row0, w != nullptr ? w + row0 : nullptr, pbar, scale,
-        dT, ds_part, rows, k, first);
+    const float* Xc = X + static_cast<size_t>(row0) * d;
+    const int rt = dfcat::tiles(rows);
+    phi_kernel<<<dim3(rt, dfcat::tiles(k)), sgemm::THREADS, 0, st>>>(
+        sgemm::operand(Xc, d, rows), F, pcat, phiT, d, k, p.chunk_rows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 f_grid(p.dtiles * p.ktiles, p.groups);
-    dfcat_kernel<<<f_grid, block, 0, st>>>(
-        X + static_cast<size_t>(row0) * d, dT, part, p.width, rows, d, k,
-        p.ktiles, first);
+    g_kernel<<<dim3(rt, p.gtiles), sgemm::THREADS, 0, st>>>(
+        sgemm::operand(phiT, p.chunk_rows, rows), Ab, phiT, y + row0,
+        w != nullptr ? w + row0 : nullptr, pbar, scale, dT, dp_part, ds_part,
+        rows, k, p.chunk_rows, p.kpad, first);
     err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = dfcat::launch(Xc, dT, part, rows, d, k, p.kpad, p.groups, first, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  const unsigned blocks = static_cast<unsigned>(
-      (p.width + 1 + REDUCE_THREADS - 1) / REDUCE_THREADS);
-  bwd_reduce_kernel<<<blocks, REDUCE_THREADS, 0, st>>>(
-      part, ds_part, out, p.groups, p.width, p.ds_slots);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dfcat::reduce(part, p.groups, dp_part, p.rtiles,
+                                        ds_part, p.rtiles * p.gtiles, out, d,
+                                        k, st));
 }
 
 extern "C" const char* scfgp_cuda_error_string(int code) {

@@ -3,7 +3,7 @@
 // Given the cotangent g (N, 2K) of Phi = s * [cos T | sin T], T = X Fcat +
 // pcat, split as g_cos = g[:, :K] and g_sin = g[:, K:], it computes
 //
-//   dT    = s * (g_sin * cos T - g_cos * sin T)        (N, K), never stored
+//   dT    = s * (g_sin * cos T - g_cos * sin T)        (N, K)
 //   dFcat = X^T dT                                     (D, K)
 //   dpcat = sum over rows of dT                        (K,)
 //   ds    = sum of g_cos * cos T + g_sin * sin T       ()
@@ -12,39 +12,50 @@
 // data and gets no gradient.  It replaces the Pallas TPU kernel
 // scfgp_tpu/ops/phi.py::_bwd_kernel (entry _phi_bwd_call), which summed its
 // row tiles into resident outputs across a sequential grid (pl.when(i == 0)
-// initialised them).  CUDA blocks run in parallel and in no order, so the
-// sums take two deterministic stages instead, and no float atomics: the
-// gradient is bitwise the same from run to run, which the fused training
-// loop's bitwise resume relies on.
+// initialised them).  CUDA blocks run in parallel and in no order, so every
+// sum over rows goes to slots of a workspace and a last stage adds them in
+// a fixed order, with no float atomics: the gradient is bitwise the same
+// from run to run, which the fused training loop's bitwise resume needs.
 //
-//   stage 1 (phi_bwd_partial_kernel): block (group, column tile) walks the
-//     row tiles group, group + G, group + 2G, ... in that order and sums its
-//     share into its own slot of a workspace the wrapper allocates:
-//     dFcat and dpcat for its columns and one ds per column tile.  G, the
-//     number of row groups, depends on the shapes alone and is capped so the
-//     workspace stays under PARTIAL_BUDGET (one slot per 64-row tile would
-//     take ~33 MB at D=256, K=500).
-//   stage 2 (phi_bwd_reduce_kernel): one thread per output adds the G slots
-//     in the order g = 0 .. G-1.
+// What bounds it on an H100: two N*D*K FMA products (T, then X^T dT) and
+// one precise sincosf per (row, feature) on the FP32 pipes, and reading g
+// (N * 2K * 4 bytes).  At D = 256 (the streaming block, 16384 x 256 x 256)
+// that is 4.3 GFLOP, 0.064 ms at 67 TFLOP/s; at D = 8 (kin8nm, 6553 x 8 x
+// 277) the 14.5 MB of g, 0.0044 ms at 3.35 TB/s, and a launch costs about
+// as much as the work.  Two designs, chosen by D alone:
 //
-// What bounds it on an H100: reading g, N * 2K * 4 bytes (14.5 MB at the
-// kin8nm model, N=6553, 2K=554: ~4.3 us at 3.35 TB/s), plus one precise
-// sincosf per (row, feature) and two N*K*D FMA passes (T, then X^T dT: 14.5 M
-// FMAs each at kin8nm).  At training sizes a launch costs about as much as
-// the work, so the design keeps dT in registers and shared memory, reads g
-// once, coalesced along the feature axis, and reads s through a pointer so
-// that no host synchronisation precedes the launch.  At D=256 the X^T dT
-// contraction is a 0.5 G FMA product done here on the FP32 pipes from shared
-// memory; cuBLAS's SGEMM in the plain version may beat it there.
+// Wide (D >= WIDE_D), on the 128 x 128 register-blocked tile of
+// sgemm_tile.cuh, over chunks of rows whose dT fits CHUNK_BUDGET:
+//   1. phi_t_kernel: block (row tile, column tile) computes T by the tile
+//      (X m-major through registers, Fcat k-major by cp.async); its
+//      epilogue does the sincosf, reads g's cos and sin columns, writes dT
+//      to the chunk's scratch and sums dpcat and ds of the block into the
+//      block's slots (dfcat::block_sums);
+//   2. dfcat::dfcat_kernel: X^T dT by the tile, split over row groups into
+//      slots, the routine K2b (gram_bwd.cu) ends in too;
+//   3. dfcat::bwd_reduce_kernel adds the slots in a fixed order.
+// At the streaming block the chunk is the whole 16384 rows (16 MB of dT):
+// 256 blocks in stage 1 and 4 tiles x 64 groups in stage 2, about two
+// waves on 132 SMs each.
 //
-// Layout: as in phi_fwd.cu, threadIdx.x walks TILE_K feature columns and
-// threadIdx.y strides the TILE_N rows of a tile; X rows and Fcat columns are
-// staged in shared memory CHUNK_D at a time, so any D works.  dT of a tile
-// goes to shared memory, and each thread then owns CHUNK_D / THREADS_Y
-// entries (d, column) of the tile's X^T dT, summed over the 64 rows in order
-// and added to its workspace slot (read-add-write by the one thread that
-// owns it).  dpcat and ds are summed per thread across the tiles and then
-// across the block in a fixed order.
+// Narrow (D < WIDE_D): at D = 8 the tile's 128-row side would hold 8 rows of
+// X^T dT, 1/16 of its work.  phi_bwd_partial_kernel keeps dT in shared
+// memory instead: block (group, 64-column tile) walks the row tiles group,
+// group + G, ... in order, recomputes T with D FMAs a (row, column), and
+// adds its X^T dT, dpcat and ds to its own slot; phi_bwd_reduce_kernel adds
+// the G slots in order.  At D = 8 this is 2.66x faster than the plain
+// version (PERF.md, PR 2); at D = 256 its X^T dT, one output a thread with
+// two shared loads an FMA, ran at ~5.5 TFLOP/s.  The wide design at D = 8
+// measured 0.0457 against 0.0470 ms at kin8nm but 0.0482 against 0.0380 at
+// bench (N = 8192, K = 250).
+//
+// Registers and shared memory (ptxas, sm_90a), no spills: phi_t_kernel 121
+// and 16,896 bytes, dfcat_kernel 128 and 16,896, phi_bwd_partial_kernel 64
+// and 33,024.  Device time on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (experiments/kernel_ab.py, PERF.md PR 7): 0.161 ms at the streaming block
+// (phi_t_kernel 83 us, dfcat_kernel 65, the reduce 9; the previous design
+// 0.779), 0.118 ms at (4096, 256, 500) (0.333), and 0.0476 ms at kin8nm
+// (narrow, unchanged).
 //
 // Precision: sincosf is the precise libdevice routine, no fast math, fp32
 // accumulation throughout (scfgp_tpu/models/objective.py:150-153).
@@ -53,7 +64,149 @@
 
 #include <cstddef>
 
+#include "dfcat.cuh"
+#include "sgemm_tile.cuh"
+
 namespace {
+
+// D from which the wide design runs.
+constexpr int WIDE_D = 64;
+constexpr size_t CHUNK_BUDGET = size_t(16) << 20;  // bytes of dT, wide
+
+// ---- wide -------------------------------------------------------------
+
+struct Plan {
+  int kpad;        // row pitch of dT, a multiple of 4
+  int chunk_rows;  // a multiple of BM
+  int rtiles;      // row tiles of a chunk: the dpcat slots
+  int ctiles;      // column tiles
+  int groups;      // row groups of dfcat_kernel
+};
+
+// Depends on the shapes alone, so the order of every sum does too.
+Plan plan(int n, int d, int k) {
+  Plan p;
+  p.kpad = dfcat::round4(k);
+  size_t rows = CHUNK_BUDGET / (static_cast<size_t>(p.kpad) * sizeof(float));
+  rows = rows / sgemm::BM * sgemm::BM;
+  const size_t all = static_cast<size_t>(dfcat::tiles(n)) * sgemm::BM;
+  if (rows > all) rows = all;
+  if (rows < sgemm::BM) rows = sgemm::BM;
+  p.chunk_rows = static_cast<int>(rows);
+  p.rtiles = p.chunk_rows / sgemm::BM;
+  p.ctiles = dfcat::tiles(k);
+  p.groups = dfcat::groups(p.chunk_rows, d, k);
+  return p;
+}
+
+// Floats of the wide workspace: dT of a chunk, the group slots, the dpcat
+// and the ds slots.
+size_t wide_workspace(const Plan& p, int d, int k) {
+  return static_cast<size_t>(p.chunk_rows) * p.kpad +
+         static_cast<size_t>(p.groups) * d * k +
+         static_cast<size_t>(p.rtiles) * k +
+         static_cast<size_t>(p.rtiles) * p.ctiles;
+}
+
+// One chunk: X and g offset to the chunk.  Writes dT (rows, kpad) and adds
+// to the dpcat slots (rtiles x k) and the ds slots (rtiles x ctiles).
+__global__ void __launch_bounds__(sgemm::THREADS, 2)
+phi_t_kernel(sgemm::Operand X, sgemm::Operand F,
+             const float* __restrict__ pcat, const float* __restrict__ scale,
+             const float* __restrict__ g, float* __restrict__ dT,
+             float* __restrict__ dp_part, float* __restrict__ ds_part,
+             int rows, int d, int k, int kpad, bool first) {
+  __shared__ __align__(16) sgemm::Smem sm;
+  const int tid = threadIdx.x;
+  const int tx = sgemm::thread_x(tid);
+  const int ty = sgemm::thread_y(tid);
+  const int m0 = blockIdx.x * sgemm::BM;
+  const int n0 = blockIdx.y * sgemm::BM;
+
+  float acc[sgemm::MICRO][sgemm::MICRO];
+  sgemm::product<false, true>(X, F, d, m0, n0, sm, acc);
+
+  const float s = *scale;
+  const size_t ld = 2 * static_cast<size_t>(k);
+  float pj[sgemm::MICRO];
+  int col[sgemm::MICRO];
+#pragma unroll
+  for (int b = 0; b < sgemm::MICRO; ++b) {
+    col[b] = sgemm::col_of(b, tx);
+    pj[b] = n0 + col[b] < k ? pcat[n0 + col[b]] : 0.0f;
+  }
+  float dp[sgemm::MICRO];
+#pragma unroll
+  for (int b = 0; b < sgemm::MICRO; ++b) dp[b] = 0.0f;
+  float ds = 0.0f;
+#pragma unroll
+  for (int a = 0; a < sgemm::MICRO; ++a) {
+    const int r = m0 + sgemm::row_of(a, ty);
+    if (r >= rows) continue;
+    const float* gr = g + static_cast<size_t>(r) * ld;
+#pragma unroll
+    for (int b = 0; b < sgemm::MICRO; ++b) {
+      const int j = n0 + col[b];
+      float dt = 0.0f;
+      if (j < k) {
+        float sn, cs;
+        sincosf(acc[a][b] + pj[b], &sn, &cs);
+        const float g_cos = gr[j];
+        const float g_sin = gr[k + j];
+        dt = s * (g_sin * cs - g_cos * sn);
+        ds += g_cos * cs + g_sin * sn;
+        dp[b] += dt;
+      }
+      acc[a][b] = dt;
+    }
+    // Four columns at a time: j < k for the first of them means all four
+    // lie inside the row pitch kpad (0 where j >= k).
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = n0 + col[4 * h];
+      if (j < k)
+        *reinterpret_cast<float4*>(dT + static_cast<size_t>(r) * kpad + j) =
+            make_float4(acc[a][4 * h], acc[a][4 * h + 1], acc[a][4 * h + 2],
+                        acc[a][4 * h + 3]);
+    }
+  }
+  dfcat::block_sums<sgemm::MICRO>(
+      dp, col, sgemm::BM, ds, reinterpret_cast<float*>(&sm),
+      dp_part + static_cast<size_t>(blockIdx.x) * k + n0, min(sgemm::BM, k - n0),
+      ds_part + blockIdx.x * gridDim.y + blockIdx.y, first);
+}
+
+int wide(const float* X, const float* Fcat, const float* pcat,
+         const float* scale, const float* g, float* work, float* out, int n,
+         int d, int k, cudaStream_t st) {
+  const Plan p = plan(n, d, k);
+  float* dT = work;
+  float* part = dT + static_cast<size_t>(p.chunk_rows) * p.kpad;
+  float* dp_part = part + static_cast<size_t>(p.groups) * d * k;
+  float* ds_part = dp_part + static_cast<size_t>(p.rtiles) * k;
+  const sgemm::Operand F = sgemm::operand(Fcat, k, k);
+  for (int row0 = 0; row0 < n; row0 += p.chunk_rows) {
+    const int rows = min(p.chunk_rows, n - row0);
+    const bool first = row0 == 0;
+    const float* Xc = X + static_cast<size_t>(row0) * d;
+    const dim3 grid(dfcat::tiles(rows), p.ctiles);
+    phi_t_kernel<<<grid, sgemm::THREADS, 0, st>>>(
+        sgemm::operand(Xc, d, rows), F, pcat, scale,
+        g + static_cast<size_t>(row0) * 2 * k, dT, dp_part, ds_part, rows, d,
+        k, p.kpad, first);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = dfcat::launch(Xc, dT, part, rows, d, k, p.kpad, p.groups, first, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(dfcat::reduce(part, p.groups, dp_part, p.rtiles,
+                                        ds_part, p.rtiles * p.ctiles, out, d,
+                                        k, st));
+}
+
+// ---- narrow -----------------------------------------------------------
+
+namespace narrow {
 
 constexpr int TILE_N = 64;
 constexpr int TILE_K = 64;
@@ -83,6 +236,14 @@ int row_groups(int n, int d, int k) {
   return g < 1 ? 1 : static_cast<int>(g);
 }
 
+// Layout: threadIdx.x walks TILE_K feature columns and threadIdx.y strides
+// the TILE_N rows of a tile; X rows and Fcat columns are staged in shared
+// memory CHUNK_D at a time, so any D works.  dT of a tile goes to shared
+// memory, and each thread then owns CHUNK_D / THREADS_Y entries (d, column)
+// of the tile's X^T dT, summed over the 64 rows in order and added to its
+// workspace slot (read-add-write by the one thread that owns it).  dpcat
+// and ds are summed per thread across the tiles and then across the block
+// in a fixed order.
 __global__ void __launch_bounds__(THREADS)
 phi_bwd_partial_kernel(const float* __restrict__ X,
                        const float* __restrict__ Fcat,
@@ -221,24 +382,13 @@ phi_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
   }
 }
 
-}  // namespace
-
-// Plain C interface, loaded with ctypes.  Floats of workspace the launch
-// needs for these shapes.
-extern "C" size_t scfgp_phi_bwd_workspace(int n, int d, int k) {
+size_t workspace(int n, int d, int k) {
   return static_cast<size_t>(row_groups(n, d, k)) * slot_width(d, k);
 }
 
-// Every pointer is a device pointer to contiguous float32 data: g is
-// (n, 2k), `part` holds scfgp_phi_bwd_workspace(n, d, k) floats, and `out`
-// d*k + k + 1 floats that receive [dFcat (d, k) | dpcat (k) | ds].  Launches
-// both stages on `stream` (a cudaStream_t), does not synchronise, allocates
-// nothing, and returns the cudaGetLastError() code (0 on success).
-extern "C" int scfgp_phi_bwd_f32(const float* X, const float* Fcat,
-                                 const float* pcat, const float* scale,
-                                 const float* g, float* part, float* out,
-                                 int n, int d, int k, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+int launch(const float* X, const float* Fcat, const float* pcat,
+           const float* scale, const float* g, float* part, float* out, int n,
+           int d, int k, cudaStream_t st) {
   const int groups = row_groups(n, d, k);
   const size_t width = slot_width(d, k);
   const dim3 block(TILE_K, THREADS_Y);
@@ -253,6 +403,33 @@ extern "C" int scfgp_phi_bwd_f32(const float* X, const float* Fcat,
   phi_bwd_reduce_kernel<<<reduce_blocks, REDUCE_THREADS, 0, st>>>(
       part, out, groups, width, n_dk_k, col_tiles(k));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace narrow
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  Floats of workspace the launch
+// needs for these shapes.
+extern "C" size_t scfgp_phi_bwd_workspace(int n, int d, int k) {
+  if (d < WIDE_D) return narrow::workspace(n, d, k);
+  return wide_workspace(plan(n, d, k), d, k);
+}
+
+// Every pointer is a device pointer to contiguous float32 data: g is
+// (n, 2k), `part` holds scfgp_phi_bwd_workspace(n, d, k) floats, and `out`
+// d*k + k + 1 floats that receive [dFcat (d, k) | dpcat (k) | ds].  n >= 1,
+// k >= 1.  Launches every stage on `stream` (a cudaStream_t), does not
+// synchronise, allocates nothing, and returns the first cudaGetLastError()
+// code that is not 0 (0 on success).
+extern "C" int scfgp_phi_bwd_f32(const float* X, const float* Fcat,
+                                 const float* pcat, const float* scale,
+                                 const float* g, float* part, float* out,
+                                 int n, int d, int k, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (d < WIDE_D)
+    return narrow::launch(X, Fcat, pcat, scale, g, part, out, n, d, k, st);
+  return wide(X, Fcat, pcat, scale, g, part, out, n, d, k, st);
 }
 
 extern "C" const char* scfgp_cuda_error_string(int code) {

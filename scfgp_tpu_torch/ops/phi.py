@@ -10,9 +10,10 @@ Two versions of each direction:
     ``scfgp_tpu/ops/phi.py::_fwd_kernel``: one launch, T never leaves
     registers, cos and sin stored straight into one contiguous (N, 2K)
     array.  ``fourier_features_bwd_cuda`` launches ``csrc/phi_bwd.cu``, the
-    port of ``_bwd_kernel``: T recomputed, dT never stored, and the sums
-    over rows taken in two deterministic stages, so the gradient is bitwise
-    repeatable.  float32 only.  Their launch counts are
+    port of ``_bwd_kernel``: T recomputed (for D >= 64 by the register-
+    blocked tile of ``csrc/sgemm_tile.cuh``, dT kept for one chunk of rows),
+    and the sums over rows taken in fixed orders without atomics, so the
+    gradient is bitwise repeatable.  float32 only.  Their launch counts are
     ``fourier_features_cuda.launches`` and
     ``fourier_features_bwd_cuda.launches``.
   * ``fourier_features_ref`` and ``phi_bwd_ref`` are the plain PyTorch

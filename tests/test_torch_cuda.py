@@ -38,9 +38,14 @@ from chip_smoke import (chol_tolerance, indefinite_input,  # noqa: E402
                         k2b_tolerance, k2f_tolerance)
 
 torch.set_num_threads(1)
-# Ragged shapes, the served kin8nm model's (N=6553, 2K=554) and D=256.
+# Ragged shapes, the served kin8nm model's (N=6553, 2K=554), D=256, the
+# edges of the 128 x 128 tile of csrc/sgemm_tile.cuh (N 127-129 and 16385,
+# D 1, 63-64 where K1b changes design, 255 and 257, K 127-129 and 256) and
+# the streaming block (N=16384, D=256, K=256).
 SHAPES = [(1, 3, 37), (777, 3, 37), (130, 1, 5), (300, 9, 129),
-          (6553, 8, 277), (4096, 256, 500)]
+          (6553, 8, 277), (4096, 256, 500), (127, 255, 129),
+          (128, 257, 128), (129, 64, 127), (128, 63, 129), (129, 1, 256),
+          (16385, 256, 256), (16384, 256, 256)]
 
 
 @pytest.fixture
@@ -213,10 +218,14 @@ def test_float64_model_on_card_raises_at_the_kernel(cuda_device):
         m.fit(Xv[:200], yv[:200], max_iter=2)
 
 
-# Ragged shapes, zero-weight rows, kin8nm's (N=6553, 2K=554) and the
-# streaming block's (N=16384, D=256, K=256).
+# Ragged shapes, zero-weight rows, kin8nm's (N=6553, 2K=554), the edges of
+# the 128 x 128 tile (N 127-129 and 16385, D 1, 255 and 257, K 127-129 and
+# 256) and the streaming block's (N=16384, D=256, K=256).
 K2_SHAPES = [(1, 3, 37, False), (777, 3, 37, True), (300, 9, 129, False),
-             (6553, 8, 277, False), (16384, 256, 256, False)]
+             (6553, 8, 277, False), (127, 255, 129, True),
+             (128, 257, 128, False), (129, 1, 127, True),
+             (300, 9, 256, False), (16385, 256, 256, True),
+             (16384, 256, 256, False)]
 
 
 def _k2_inputs(n, d, k, weighted, device, seed=0):

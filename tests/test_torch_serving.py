@@ -216,7 +216,8 @@ def test_import_leaves_jax_out():
             "scfgp_tpu_torch.data.datasets, scfgp_tpu_torch.utils.checkpoint,"
             " scfgp_tpu_torch.ops.gram, scfgp_tpu_torch.ops.streaming,"
             " scfgp_tpu_torch.ops.cholesky, scfgp_tpu_torch.utils.profiling,"
-            " scfgp_tpu_torch.experiments.chol_crossover;"
+            " scfgp_tpu_torch.experiments.chol_crossover,"
+            " scfgp_tpu_torch.experiments.kernel_ab;"
             "from scfgp_tpu_torch.ops import loss_fn_streaming;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
