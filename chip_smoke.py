@@ -14,7 +14,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 3. K1f against its plain PyTorch version on the card at the slice's shapes
    (kin8nm, bench, ragged, D=256 and the streaming block), with both times
    (CUDA events, median of repeats): device time (``ms``) and time per call
-   with the host's share (``call_ms``);
+   with the host's share (``call_ms``); the same call twice must give
+   bitwise equal features;
 3b. K1b the same way, against ``phi_bwd_ref`` and against autograd through
    the plain feature map, with a stated error bound; the same call twice
    must give bitwise equal gradients;
@@ -65,15 +66,18 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
-route, the crossover and the posterior through K3) and read just after;
-every training phase must launch K1f and K1b, the streaming path K1f, K1b,
-K2f and K2b, the crossover K4 and K3, the posterior K3; the serving,
+and GEMM routes, the crossover and the posterior through K3) and read just
+after; every training phase must launch K1f and K1b, the streaming kernel
+route K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f
+nor K2b, the crossover K4 and K3, the posterior K3; the serving,
 training and streaming paths must launch neither K3 nor K4 (their
 posterior stays on torch's pair).  The line before the last is a JSON
 object with each kernel's launches, error and times, its bound (the
 larger of its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s,
 from this run's shapes) and the time of one library call for the same
-function where there is one; the last line is
+function where there is one, at the shape KERNELS_LINE_SHAPES names first
+(``at``; K1f, K1b, K2f and K2b at one streaming block) and the same
+readings at the others (``beside``); the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result when
 there is no CUDA device or no package beside it.
 """
@@ -127,7 +131,9 @@ POST_TOL = 3e-3   # per field, relative to its largest entry
 PRED_TOL = 3e-4   # mean: relative to its largest value; std: relative
 COST_TOL = 1e-4   # relative
 C_TOL = 1e-3      # absolute on c, a log of the recalibrated dispersion
-# K1f equals the plain map bitwise at D=8, and K1b's sums over rows differ
+# K1f equals the plain map bitwise at kin8nm (cuBLAS sums T there in the
+# kernel's order d = 0..D-1; ``equals_plain`` of phase 3 shows where it does
+# elsewhere), and K1b's sums over rows differ
 # from autograd's only in order, so the two loss gradients differ by float32
 # rounding carried through the Cholesky backward (cond(A) ~ 1e4): measured
 # ~5e-7 of each leaf's largest entry on an H100, held at 1e-4.  Phase
@@ -171,6 +177,13 @@ K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
              ("ragged-1", 1, 3, 37, False), ("ragged-777", 777, 3, 37, False),
              ("block", *STREAM_BLOCK, False),
              ("weighted", 5000, 16, 100, True)]
+# The shapes (names of K1_SHAPES and K2_SHAPES) at which the kernels line
+# reports K1f, K1b, K2f and K2b: first where a streaming step spends its
+# time, one block of phase 9, then the served kin8nm model beside it.
+KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm"),
+                       "phi_bwd": ("block", "kin8nm"),
+                       "gram_fwd": ("block", "kin8nm"),
+                       "gram_bwd": ("block", "kin8nm")}
 # The kernel route, the GEMM route and the dense path each sum the 1e6 rows
 # of the statistics in float32 in another order: by the probabilistic
 # rounding model (Higham and Mary 2019) each statistic is off by at most
@@ -627,8 +640,9 @@ def streaming(dev, launches):
     16384, adam lr 0.01), from random params made from SEED:
 
     (a) cost and gradient through ``loss_fn_streaming`` on the kernel route
-        (K2f, K2b in pass 1; K1f, K1b in pass 2), the path whose launches are
-        counted, against the GEMM route and the dense ``loss_and_grad``;
+        (K2f, K2b in pass 1; K1f, K1b in pass 2) against the GEMM route (K1f
+        and K1b in both passes) and the dense ``loss_and_grad``, the two
+        routes' launches counted each on its own;
     (b) five loss + grad + adam steps on each route, in turns, with ms per
         step, Mrows/s, the first and final cost, and the device-busy share;
     (c) the peak device memory of one step on each route and of the dense
@@ -669,9 +683,14 @@ def streaming(dev, launches):
     counts = launches.read("streaming", need=("phi_fwd", "phi_bwd",
                                               "gram_fwd", "gram_bwd"))
     out = {"kernel": (cost, g)}
-    for route in ("gemm", "dense"):
-        (c, _), gr = grad(route)
-        out[route] = (c, gr)
+    launches.start()
+    (c, _), gr = grad("gemm")
+    torch.cuda.synchronize()
+    gemm_counts = launches.read("streaming_gemm",
+                                none=CHOL_KERNELS + ("gram_fwd", "gram_bwd"))
+    out["gemm"] = (c, gr)
+    (c, _), gr = grad("dense")
+    out["dense"] = (c, gr)
     torch.cuda.synchronize()
     agree = {}
     for a, b in (("kernel", "gemm"), ("kernel", "dense"), ("gemm", "dense")):
@@ -683,7 +702,7 @@ def streaming(dev, launches):
     cond = float(torch.linalg.cond(L @ L.T))
     say("streaming_agreement", n=cfg["N"], d=cfg["D"], s=cfg["S"],
         m=cfg["M"], block=cfg["block"], data_s=t_data, cost=float(cost),
-        cond_A=cond, launches=counts, **agree)
+        cond_A=cond, launches=counts, gemm_launches=gemm_counts, **agree)
     for route, (c, gr) in out.items():
         check(math.isfinite(float(c))
               and all(bool(torch.isfinite(t).all()) for t in gr),
@@ -833,6 +852,7 @@ def main():
                              rng.uniform(0, 2 * np.pi, k)))
         s = torch.tensor(0.7, device=dev)
         got = fourier_features_cuda(X, F, p, s)
+        again = fourier_features_cuda(X, F, p, s)
         torch.cuda.synchronize()
         ref = fourier_features_ref(X, F, p, s)
         err = float((got - ref).abs().max())
@@ -841,10 +861,13 @@ def main():
         plain = lambda: fourier_features_ref(X, F, p, s)  # noqa: E731
         k1[name] = dict(
             n=n, d=d, k=k, max_abs_err=err, tol=tol,
+            bitwise=torch.equal(got, again),
+            equals_plain=torch.equal(got, ref),
             ms=median_ms(kern, hide_host=True),
             plain_ms=median_ms(plain, hide_host=True),
             call_ms=median_ms(kern), plain_call_ms=median_ms(plain))
         say("k1_vs_plain", shape=name, **k1[name])
+        check(k1[name]["bitwise"], f"K1 is not bitwise repeatable at {name}")
         check(got.shape == (n, 2 * k) and err <= tol,
               f"K1 disagrees with the plain version at {name}: {err} > {tol}")
 
@@ -1269,36 +1292,47 @@ def main():
 
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",
-                k1["kin8nm"], k1f_work),
+                k1, k1f_work),
                ("phi_bwd", "csrc/phi_bwd.cu", "scfgp_tpu/ops/phi.py:73",
-                k1b["kin8nm"], k1b_work),
+                k1b, k1b_work),
                ("gram_fwd", "csrc/gram_fwd.cu", "scfgp_tpu/ops/gram.py:45",
-                k2f["block"], k2f_work),
+                k2f, k2f_work),
                ("gram_bwd", "csrc/gram_bwd.cu", "scfgp_tpu/ops/gram.py:85",
-                k2b["block"], k2b_work),
+                k2b, k2b_work),
                ("cholesky", "csrc/cholesky.cu",
                 "scfgp_tpu/ops/cholesky.py:160",
-                dict(n=row554["n"], max_abs_err=row554["err"]["L_k4"],
-                     ms=row554["k4_ms"], plain_ms=row554["k4_plain_ms"],
-                     library_ms=row554["k4_library_ms"]),
+                {"n554": dict(n=row554["n"],
+                              max_abs_err=row554["err"]["L_k4"],
+                              ms=row554["k4_ms"],
+                              plain_ms=row554["k4_plain_ms"],
+                              library_ms=row554["k4_library_ms"])},
                 lambda n: chol_work(n, inverse=False)),
                ("cholesky_inverse", "csrc/cholesky.cu",
                 "scfgp_tpu/ops/cholesky.py:247",
-                dict(n=row554["n"],
-                     max_abs_err=max(row554["err"]["L"], row554["err"]["Li"]),
-                     ms=row554["k3_ms"], plain_ms=row554["k3_plain_ms"]),
+                {"n554": dict(n=row554["n"],
+                              max_abs_err=max(row554["err"]["L"],
+                                              row554["err"]["Li"]),
+                              ms=row554["k3_ms"],
+                              plain_ms=row554["k3_plain_ms"])},
                 lambda n: chol_work(n, inverse=True))]
-    line = []
-    for name, src, replaces, row, work in kernels:
+
+    def reading(row, work):
         shape = [row[key] for key in ("n", "d", "k") if key in row]
         bound_ms, bound_by = bound(*work(*shape))
+        return dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=row.get("library_ms"),
+                    shape=shape)
+
+    line = []
+    for name, src, replaces, rows, work in kernels:
+        first, *beside = KERNELS_LINE_SHAPES.get(name, list(rows))
         line.append({
             "name": name, "route": "cuda", "source": "scfgp_tpu_torch/" + src,
             "replaces": replaces, "launches": launches.total(name),
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": row.get("library_ms"),
-            "shape": shape, "by_path": launches.of(name)})
+            **reading(rows[first], work), "at": first,
+            "beside": {at: reading(rows[at], work) for at in beside},
+            "by_path": launches.of(name)})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 // A register-blocked 128 x 128 float32 product tile for Hopper's FP32
-// pipes, shared by the backward kernels K1b (phi_bwd.cu) and K2b
+// pipes, shared by the feature map and Gram kernels: K1f for D >= 64
+// (features.cuh, phi_fwd.cu), K1b (phi_bwd.cu), K2f (gram_fwd.cu) and K2b
 // (gram_bwd.cu):
 //
 //   acc[a][b] = sum over kk < depth of A(kk, m0 + row(a)) * B(kk, n0 + col(b))
@@ -31,10 +32,10 @@
 // kernels use 117-128 registers and spill nothing (ptxas, sm_90a).  What
 // bounds it: 64 FMAs a thread per 4 shared loads, so the FP32 pipes (67
 // TFLOP/s on an H100 SXM at 700 W), not shared memory.  Measured on an
-// NVIDIA H100 80GB HBM3 at 700 W: ~38 TFLOP/s in K2b's phi Abar, 26-33 in
-// K1b's T and X^T dT at the streaming block (PERF.md, PR 7).  A warp laid
-// over 4 x 8 threads instead of 2 x 16 (half the shared-memory wavefronts)
-// measured no faster.
+// NVIDIA H100 80GB HBM3 at 700 W at the streaming block (PERF.md §6): ~40
+// TFLOP/s in K2f's Gram, ~38 in K2b's phi Abar, 26-33 in K1f's and K1b's T
+// and in X^T dT.  A warp laid over 4 x 8 threads instead of 2 x 16 (half
+// the shared-memory wavefronts) measured no faster.
 
 #pragma once
 

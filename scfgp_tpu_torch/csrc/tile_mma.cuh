@@ -1,5 +1,5 @@
 // A 64 x 64 output tile of a float32 matrix product on the FP32 pipes,
-// shared by K2f (gram_fwd.cu) and K2b (gram_bwd.cu).
+// used by K4 and K3 (cholesky.cu).
 //
 // A block of 16 x 16 threads owns the tile; thread (tx, ty) owns the 4 x 4
 // outputs (ty*4 + a, tx*4 + b).  The reduction is staged KC deep in shared

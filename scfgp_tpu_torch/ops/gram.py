@@ -12,12 +12,14 @@ Two versions of each direction:
   * ``sufficient_stats_cuda`` launches the hand-written Hopper kernel
     ``csrc/gram_fwd.cu``, the port of the Pallas kernel
     ``scfgp_tpu/ops/gram.py::_fwd_kernel``: Phi is never written for more
-    rows than one chunk (an L2-sized scratch), and the symmetric Gram is
-    emitted directly.  ``sufficient_stats_bwd_cuda`` launches
-    ``csrc/gram_bwd.cu``, the port of ``_bwd_kernel``.  Both sum over rows
-    in fixed orders, without atomics, so they are bitwise repeatable.
-    float32 only.  Their launch counts are ``sufficient_stats_cuda.launches``
-    and ``sufficient_stats_bwd_cuda.launches``.
+    rows than one chunk (an L2-sized scratch), the upper tiles of the Gram
+    are summed by the register-blocked tile of ``csrc/sgemm_tile.cuh``, and
+    the symmetric Gram is emitted directly.  ``sufficient_stats_bwd_cuda``
+    launches ``csrc/gram_bwd.cu``, the port of ``_bwd_kernel``.  Both sum
+    over rows in fixed orders, without atomics, so they are bitwise
+    repeatable.  float32 only.  Their launch counts are
+    ``sufficient_stats_cuda.launches`` and
+    ``sufficient_stats_bwd_cuda.launches``.
   * ``sufficient_stats_ref`` and ``gram_bwd_ref`` are the plain PyTorch
     versions: the CPU path and the kernels' references on the card.
 

@@ -8,12 +8,13 @@ Two versions of each direction:
   * ``fourier_features_cuda`` launches the hand-written Hopper kernel
     ``csrc/phi_fwd.cu``, the port of the Pallas kernel
     ``scfgp_tpu/ops/phi.py::_fwd_kernel``: one launch, T never leaves
-    registers, cos and sin stored straight into one contiguous (N, 2K)
-    array.  ``fourier_features_bwd_cuda`` launches ``csrc/phi_bwd.cu``, the
-    port of ``_bwd_kernel``: T recomputed (for D >= 64 by the register-
-    blocked tile of ``csrc/sgemm_tile.cuh``, dT kept for one chunk of rows),
-    and the sums over rows taken in fixed orders without atomics, so the
-    gradient is bitwise repeatable.  float32 only.  Their launch counts are
+    registers (for D >= 64 computed by the register-blocked tile of
+    ``csrc/sgemm_tile.cuh``), cos and sin stored straight into one
+    contiguous (N, 2K) array.  ``fourier_features_bwd_cuda`` launches
+    ``csrc/phi_bwd.cu``, the port of ``_bwd_kernel``: T recomputed (for
+    D >= 64 by the same tile, dT kept for one chunk of rows), and the sums
+    over rows taken in fixed orders without atomics, so the gradient is
+    bitwise repeatable.  float32 only.  Their launch counts are
     ``fourier_features_cuda.launches`` and
     ``fourier_features_bwd_cuda.launches``.
   * ``fourier_features_ref`` and ``phi_bwd_ref`` are the plain PyTorch

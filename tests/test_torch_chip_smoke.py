@@ -23,6 +23,18 @@ def test_chip_smoke_times_the_kernels_at_the_streaming_block(shapes):
     assert BLOCK in [tuple(row[1:4]) for row in getattr(chip_smoke, shapes)]
 
 
+@pytest.mark.parametrize("kernel,shapes", [("phi_fwd", "K1_SHAPES"),
+                                           ("gram_fwd", "K2_SHAPES")])
+def test_kernels_line_reports_the_forward_kernels_at_the_streaming_block(
+        kernel, shapes):
+    """The kernels line's first reading of K1f and K2f is one block of phase
+    9, with the served kin8nm model beside it."""
+    first, *beside = chip_smoke.KERNELS_LINE_SHAPES[kernel]
+    rows = {row[0]: tuple(row[1:4]) for row in getattr(chip_smoke, shapes)}
+    assert rows[first] == BLOCK
+    assert "kin8nm" in beside and all(at in rows for at in beside)
+
+
 def test_kernel_ab_times_the_streaming_block_and_the_kernels_line_shapes():
     assert kernel_ab.SHAPES["block"] == BLOCK
     assert set(kernel_ab.KERNELS) == {"phi_fwd", "phi_bwd", "gram_fwd",
