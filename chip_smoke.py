@@ -62,12 +62,24 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    at n = 512, 1024, 2048, 4096: K4 and K3 against torch's pair and the
    block-Neumann inverse, each leg's device time and time per call;
 10b. the served kin8nm model's posterior (2K = 554, 6553 rows) rebuilt
-   through K3 and held against ``solve_posterior`` (torch's pair).
+   through K3 and held against ``solve_posterior`` (torch's pair);
+11. batched sweeps and ensembles (BATCH_SHAPES and below): 11a K1f and K1b
+   with a trial axis, each trial bitwise its 2-D call, with the device
+   times of the batched launch, of B 2-D launches and of the plain batched
+   version; 11b ``fit_fast_batch`` of 10 boston trials against sequential
+   ``fit_fast`` (float32 through the kernels, K1b launched once a step of
+   the batch; float32 with every product past Phi per trial, and float64
+   on the plain map, both at the JAX tolerances); 11c the
+   ported boston driver's batched sweep at full width (50 trials x m in
+   {10..50}); 11d its floor-closing ensembles on seeds 0-2; 11e the co2
+   driver (plain and composite) and the abalone and kin8nm drivers with
+   --quick, with the floor pins of tests/test_end_to_end.py.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
-and GEMM routes, the crossover and the posterior through K3) and read just
-after; every training phase must launch K1f and K1b, the streaming kernel
+and GEMM routes, the crossover, the posterior through K3, and each path of
+phase 11) and read just after; every training phase must launch K1f and
+K1b, the streaming kernel
 route K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f
 nor K2b, the crossover K4 and K3, the posterior K3; the serving,
 training and streaming paths must launch neither K3 nor K4 (their
@@ -179,9 +191,12 @@ K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
              ("weighted", 5000, 16, 100, True)]
 # The shapes (names of K1_SHAPES and K2_SHAPES) at which the kernels line
 # reports K1f, K1b, K2f and K2b: first where a streaming step spends its
-# time, one block of phase 9, then the served kin8nm model beside it.
-KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm"),
-                       "phi_bwd": ("block", "kin8nm"),
+# time, one block of phase 9, then the served kin8nm model beside it, and
+# for K1f and K1b the batched launches of phase 11a.
+KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm", "batch-boston",
+                                   "batch-kin8nm", "batch-d256"),
+                       "phi_bwd": ("block", "kin8nm", "batch-boston",
+                                   "batch-kin8nm", "batch-d256"),
                        "gram_fwd": ("block", "kin8nm"),
                        "gram_bwd": ("block", "kin8nm")}
 # The kernel route, the GEMM route and the dense path each sum the 1e6 rows
@@ -201,6 +216,42 @@ STREAM_GRAD_TOL = 1e-3
 # step (X and y included), whatever N.
 STREAM_PEAK_BLOCKS = 16
 STREAM_PEAK_EXTRA = 64 << 20
+
+# Phase 11a: (name, B, N, D, K) of K1f and K1b with a trial axis: the
+# boston sweep's trials (50 trials, 455 training rows, D=13, m=50 with
+# S=20: K=70), eight kin8nm trials at the served model's width, and four at
+# D=256, where both kernels take their wide design.
+BATCH_SHAPES = [("boston", 50, 455, 13, 70), ("kin8nm", 8, 6553, 8, 277),
+                ("d256", 4, 4096, 256, 500)]
+# Phase 11b: the trials of fit_fast_batch against sequential fit_fast.  In
+# float64 (the plain feature map on the card) they are held at the JAX
+# package's tolerances (tests/test_batch_fit.py:49-72): equal iteration
+# counts, costs at rtol 1e-6, params at rtol 1e-4 and atol 1e-7, final
+# validation metrics at rtol 1e-5.  In float32 the batched products
+# (cuBLAS strided-batched GEMMs, the batched Cholesky) round otherwise than
+# the 2-D ones, and the loop's threshold tests (improved by less than
+# cvrg_tol, stall annealing past max_cvrg / 2) can flip on that rounding:
+# on an H100 one of ten boston trials took another branch at step 21 and
+# ended at NMSE 0.427 against 0.332, both legitimate trajectories, and the
+# others drifted by up to 5e-4 in cost.  So in float32 each trial's
+# fit_fast_batch alone (B = 1) must equal its fit_fast bitwise; in the
+# batch of all trials the first BATCH_FIT_EXACT_STEPS costs, before any
+# annealing can act, must agree within FIT_COST_TOL; and the same batch
+# with every product past Phi per trial (per_trial_products: the loop,
+# its masks and generators, K1f and K1b stay batched) must agree with the
+# sequential fits at the JAX tolerances over whole runs.
+BATCH_FIT_TRIALS = 10
+BATCH_FIT_EXACT_STEPS = 10
+BATCH_FIT_COST_RTOL = 1e-6
+BATCH_FIT_PARAM_RTOL = 1e-4
+BATCH_FIT_PARAM_ATOL = 1e-7
+BATCH_FIT_METRIC_RTOL = 1e-5
+# Phases 11c-11e: the floor pins of tests/test_end_to_end.py: the boston
+# sweep's mean NMSE/floor at m=20 over seeds 0-2 (:32-57), the ensembles'
+# (:60-83) and the co2 composite's (:169-196).
+SWEEP_PIN_M, SWEEP_PIN = 20, 1.35
+ENSEMBLE_PIN = 1.2
+CO2_PIN = 1.2
 
 # The reference kin8nm protocol (experiments/kin8nm.py:35-47 through
 # utils/experiment.py:109-111): full rank S=D=8, M=269 (2K=554).
@@ -558,6 +609,82 @@ def plain_feature_map():
         objective.fourier_features = kernel
 
 
+def trial_of(tree, b):
+    """Trial b of a batched tensor or NamedTuple of tensors, each tensor a
+    fresh copy (aligned as the 2-D call's own tensors are)."""
+    if isinstance(tree, torch.Tensor):
+        return tree[b].clone()
+    return type(tree)(*(trial_of(t, b) for t in tree))
+
+
+def stack_trials(trees):
+    """The inverse of ``trial_of``: one batched tree of per-trial trees.
+    Column-major matrices (L and L⁻¹, as LAPACK and cuSOLVER leave them,
+    batched or not) stay column-major: a product with another layout takes
+    another cuBLAS kernel and rounds otherwise."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        if first.dim() == 2 and not first.is_contiguous():
+            return torch.stack([t.mT for t in trees]).mT
+        return torch.stack(trees)
+    parts = [stack_trials(list(t)) for t in zip(*trees)]
+    return type(first)(*parts) if hasattr(first, "_fields") else tuple(parts)
+
+
+@contextlib.contextmanager
+def per_trial_products():
+    """Run ``fit_fast_batch``'s objective with only its feature map batched:
+    each trial's frequencies are derived alone and stacked, one K1f and one
+    K1b launch serve all trials, and every product past Phi (Gram,
+    Cholesky, moments, penalty, predictions) runs per trial on 2-D tensors.
+    The loop, its masks, generators and optimizer state, and the
+    validation metric stay batched.  Without a trial axis the objective is
+    unchanged."""
+    from scfgp_tpu_torch.models import model, objective
+    from scfgp_tpu_torch.models.params import (derive_frequencies,
+                                               feature_scale)
+    from scfgp_tpu_torch.ops.phi import FourierFeatures
+    saved = model.loss_fn, model.loss_and_grad, model.predict_f
+
+    def features(trials, X, basis_fn):
+        if basis_fn is not None:
+            raise NotImplementedError("per_trial_products: no extra basis")
+        fr = [derive_frequencies(q) for q in trials]
+        return FourierFeatures.apply(
+            X, torch.stack([f.Fcat for f in fr]),
+            torch.stack([f.pcat for f in fr]),
+            torch.stack([feature_scale(q) for q in trials]))
+
+    def loss_fn(p, X, y, w=None, basis_fn=None):
+        if X.dim() == 2 or w is not None:
+            return objective.loss_fn(p, X, y, w, basis_fn)
+        trials = [trial_of(p, b) for b in range(X.shape[0])]
+        Phi = features(trials, X, basis_fn)
+        return stack_trials([
+            objective.loss_from_phi(q, Phi[b].clone(), y[b].clone())
+            for b, q in enumerate(trials)])
+
+    def loss_and_grad(p, X, y, w=None, basis_fn=None):
+        return objective.value_and_grad(loss_fn, p, X, y, w=w,
+                                        basis_fn=basis_fn)
+
+    def predict_f(p, post, Xs, basis_fn=None):
+        if Xs.dim() == 2:
+            return objective.predict_f(p, post, Xs, basis_fn)
+        trials = [trial_of(p, b) for b in range(Xs.shape[0])]
+        Phis = features(trials, Xs, basis_fn)
+        return stack_trials([
+            objective.predict_from_phi(q, trial_of(post, b), Phis[b].clone())
+            for b, q in enumerate(trials)])
+
+    model.loss_fn, model.loss_and_grad, model.predict_f = (
+        loss_fn, loss_and_grad, predict_f)
+    try:
+        yield
+    finally:
+        model.loss_fn, model.loss_and_grad, model.predict_f = saved
+
+
 # Launched only by the Cholesky paths (phases 10, 10b): the serving,
 # training and streaming posteriors stay on torch's pair.
 CHOL_KERNELS = ("cholesky", "cholesky_inverse")
@@ -790,6 +917,277 @@ def crossover_phase(launches, chol):
                                                              tol["Li"])
               and cell["neumann_err"] <= tol["Li"],
               f"crossover at n={n}: a leg disagrees: {cell}")
+
+
+def batched_kernels_phase(dev, rng):
+    """Phase 11a: K1f and K1b with a trial axis at BATCH_SHAPES, each trial
+    bitwise the 2-D call on its own inputs and within k1_tolerance and
+    k1b_tolerance of the batched plain version, bitwise repeatable; device
+    times of the batched launch, of B 2-D launches and of the plain batched
+    version.  Returns the rows of K1f and of K1b by shape name."""
+    from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
+                                         fourier_features_cuda,
+                                         fourier_features_ref, phi_bwd_ref)
+
+    def outputs(x):  # K1f gives one tensor, K1b three
+        return list(x) if isinstance(x, tuple) else [x]
+
+    rows = {"k1f": {}, "k1b": {}}
+    for name, B, n, d, k in BATCH_SHAPES:
+        X, F, p, s, g = (torch.as_tensor(a, dtype=torch.float32, device=dev)
+                         for a in (rng.rand(B, n, d), 3.0 * rng.randn(B, d, k),
+                                   rng.uniform(0, 2 * np.pi, (B, k)),
+                                   rng.uniform(0.5, 1.5, B),
+                                   rng.randn(B, n, 2 * k)))
+        for phase, kern, plain, tolerance, nargs in (
+                ("k1f", fourier_features_cuda, fourier_features_ref,
+                 k1_tolerance, 4),
+                ("k1b", fourier_features_bwd_cuda, phi_bwd_ref,
+                 k1b_tolerance, 5)):
+            args = (X, F, p, s, g)[:nargs]
+            trials = [tuple(t[b] for t in args) for b in range(B)]
+            out, again = (outputs(kern(*args)) for _ in range(2))
+            one_by_one = [outputs(kern(*t)) for t in trials]
+            torch.cuda.synchronize()
+            ref = outputs(plain(*args))
+            err = [[float((o[b] - r[b]).abs().max()) for o, r in zip(out, ref)]
+                   for b in range(B)]
+            tol = [outputs(tolerance(*t)) for t in trials]
+
+            def loop(kern=kern, trials=trials):
+                for t in trials:
+                    kern(*t)
+            row = dict(
+                b=B, n=n, d=d, k=k, max_abs_err=float(np.max(err)),
+                per_trial_bitwise=all(
+                    torch.equal(o[b], ob) for b in range(B)
+                    for o, ob in zip(out, one_by_one[b])),
+                bitwise=all(torch.equal(a, c) for a, c in zip(out, again)),
+                within_tol=bool(np.all(np.asarray(err) <= np.asarray(tol))),
+                ms=median_ms(lambda: kern(*args), reps=11, inner=5,
+                             hide_host=True),
+                two_d_ms=median_ms(loop, reps=5, inner=2, hide_host=True),
+                plain_ms=median_ms(lambda: plain(*args), reps=11, inner=5,
+                                   hide_host=True),
+                call_ms=median_ms(lambda: kern(*args), reps=11, inner=5),
+                two_d_call_ms=median_ms(loop, reps=5, inner=2))
+            rows[phase][name] = row
+            say(f"{phase}_batched", shape=name, **row)
+            check(row["per_trial_bitwise"], f"batched {phase} at {name}: a "
+                  "trial differs from its 2-D call")
+            check(row["bitwise"], f"batched {phase} at {name} is not "
+                  "bitwise repeatable")
+            check(row["within_tol"], f"batched {phase} at {name} disagrees "
+                  f"with the plain version: {err} > {tol}")
+        del X, F, p, s, g, out, again, one_by_one, ref
+        torch.cuda.empty_cache()
+    return rows["k1f"], rows["k1b"]
+
+
+def batch_fit_phase(launches):
+    """Phase 11b: ``fit_fast_batch`` of BATCH_FIT_TRIALS boston trials at
+    m=30 (experiments/boston_housing.py:44-56) against the same trials by
+    sequential ``fit_fast`` with the same seeds, (1) in float32 through K1f
+    and K1b, where K1b must launch once a step of the batch and each trial
+    batched alone must equal its fit_fast bitwise, (2) in float32 with
+    every product past Phi per trial (``per_trial_products``), and (3) in
+    float64 with the plain feature map on the card, (2) and (3) at the JAX
+    tolerances of tests/test_batch_fit.py:49-72 (see BATCH_FIT_*)."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_boston
+    from scfgp_tpu_torch.experiments.boston_housing import OPT
+    from scfgp_tpu_torch.models.model import fit_fast_batch
+
+    data = [load_boston(seed=b)[:4] for b in range(BATCH_FIT_TRIALS)]
+
+    def models(dtype):
+        return [SCFGP(sparsity=20, nfeats=30, seed=b, device="cuda",
+                      dtype=dtype) for b in range(BATCH_FIT_TRIALS)]
+
+    def run(dtype, path):
+        launches.start()
+        bat = models(dtype)
+        t = time.perf_counter()
+        fit_fast_batch(bat, data, **OPT)
+        t_bat = time.perf_counter() - t
+        need = ("phi_fwd", "phi_bwd") if dtype == torch.float32 else ()
+        counts = launches.read(path, need=need)
+        launches.start()
+        seq = models(dtype)
+        t = time.perf_counter()
+        for m, d in zip(seq, data):
+            m.fit_fast(*d, **OPT)
+        torch.cuda.synchronize()
+        t_seq = time.perf_counter() - t
+        seq_counts = launches.read(path + "_sequential", need=need)
+        return bat, seq, t_bat, t_seq, counts, seq_counts
+
+    def compare(bat, seq):
+        hist = [(np.asarray(b.evals["COST"][1]), np.asarray(s.evals["COST"][1]))
+                for b, s in zip(bat, seq)]
+        common = [min(len(a), len(c)) for a, c in hist]
+        return dict(
+            lengths=[[len(a), len(c)] for a, c in hist],
+            cost_rel_err=[float(np.max(np.abs(a[:n] - c[:n]) / np.abs(c[:n])))
+                          for (a, c), n in zip(hist, common)],
+            first_cost_rel_err=[
+                float(np.max(np.abs(a[:BATCH_FIT_EXACT_STEPS]
+                                 - c[:BATCH_FIT_EXACT_STEPS])
+                             / np.abs(c[:BATCH_FIT_EXACT_STEPS])))
+                for a, c in hist],
+            params_err=[max(float(((x - y).abs() - BATCH_FIT_PARAM_RTOL
+                                   * y.abs()).max()) for x, y in
+                            zip(b.params, s.params)) for b, s in zip(bat, seq)],
+            metric_rel_err={k: [abs(b.evals[k][1][-1] - s.evals[k][1][-1])
+                                / abs(s.evals[k][1][-1])
+                                for b, s in zip(bat, seq)]
+                            for k in ("NMSE", "MNLP", "SCORE", "RMSE")})
+
+    bat, seq, t_bat, t_seq, counts, seq_counts = run(torch.float32,
+                                                     "fit_fast_batch")
+    iters = max(len(m.evals["COST"][1]) for m in bat)
+    f32 = compare(bat, seq)
+    alone = models(torch.float32)
+    for m, d in zip(alone, data):
+        fit_fast_batch([m], [d], **OPT)
+    alone_bitwise = [params_equal(a.params, s.params)
+                     and a.evals["COST"][1] == s.evals["COST"][1]
+                     for a, s in zip(alone, seq)]
+    say("fit_fast_batch", trials=BATCH_FIT_TRIALS, dtype="float32",
+        batch_seconds=t_bat, sequential_seconds=t_seq,
+        batch_ms_per_trial=t_bat * 1e3 / BATCH_FIT_TRIALS,
+        sequential_ms_per_trial=t_seq * 1e3 / BATCH_FIT_TRIALS,
+        loop_iterations=iters, launches=counts, sequential_launches=seq_counts,
+        NMSE=[m.evals["NMSE"][1][-1] for m in bat],
+        sequential_NMSE=[m.evals["NMSE"][1][-1] for m in seq],
+        alone_bitwise=alone_bitwise, **f32)
+    check(counts["phi_bwd"] == iters, f"fit_fast_batch: K1b launched "
+          f"{counts['phi_bwd']} times for {iters} steps of the batch")
+    check(seq_counts["phi_bwd"] == sum(len(m.evals["COST"][1]) for m in seq),
+          "sequential fit_fast: K1b did not launch once a step")
+    check(all(alone_bitwise), "fit_fast_batch of one trial differs from its "
+          f"fit_fast: {alone_bitwise}")
+    check(max(f32["first_cost_rel_err"]) <= FIT_COST_TOL
+          and all(math.isfinite(m.evals["NMSE"][1][-1]) for m in bat),
+          f"fit_fast_batch in float32 strays from sequential fit_fast: {f32}")
+    # The same batch with every product past Phi per trial: what is left
+    # batched (the loop, K1f and K1b) must replay the sequential fits.
+    launches.start()
+    witness = models(torch.float32)
+    with per_trial_products():
+        fit_fast_batch(witness, data, **OPT)
+    w_counts = launches.read("fit_fast_batch_per_trial_products")
+    w_iters = max(len(m.evals["COST"][1]) for m in witness)
+    f32w = compare(witness, seq)
+    w_bitwise = [params_equal(a.params, s.params)
+                 and params_equal(a.post, s.post)
+                 and all(a.evals[k][1] == s.evals[k][1] for k in
+                         ("COST", "NMSE", "MNLP", "SCORE", "RMSE"))
+                 for a, s in zip(witness, seq)]
+    say("fit_fast_batch", trials=BATCH_FIT_TRIALS, dtype="float32",
+        products="per_trial", loop_iterations=w_iters, launches=w_counts,
+        bitwise=w_bitwise, **f32w)
+    check(w_counts["phi_bwd"] == w_iters, "fit_fast_batch with per-trial "
+          f"products: K1b launched {w_counts['phi_bwd']} times for {w_iters} "
+          "steps of the batch")
+    check(all(a == c for a, c in f32w["lengths"])
+          and max(f32w["cost_rel_err"]) <= BATCH_FIT_COST_RTOL
+          and max(f32w["params_err"]) <= BATCH_FIT_PARAM_ATOL
+          and max(max(v) for v in f32w["metric_rel_err"].values())
+          <= BATCH_FIT_METRIC_RTOL,
+          "fit_fast_batch in float32 with per-trial products differs from "
+          f"sequential fit_fast: {f32w}")
+    with plain_feature_map():
+        bat, seq, t_bat, t_seq, counts, seq_counts = run(torch.float64,
+                                                         "fit_fast_batch_f64")
+    f64 = compare(bat, seq)
+    say("fit_fast_batch", trials=BATCH_FIT_TRIALS, dtype="float64",
+        feature_map="plain", batch_seconds=t_bat, sequential_seconds=t_seq,
+        launches=counts, **f64)
+    check(all(a == c for a, c in f64["lengths"])
+          and max(f64["cost_rel_err"]) <= BATCH_FIT_COST_RTOL
+          and max(f64["params_err"]) <= BATCH_FIT_PARAM_ATOL
+          and max(max(v) for v in f64["metric_rel_err"].values())
+          <= BATCH_FIT_METRIC_RTOL,
+          f"fit_fast_batch in float64 differs from sequential fit_fast: {f64}")
+
+
+def sweeps_phase(launches, workdir):
+    """Phases 11c-11e: the ported drivers.  11c the boston sweep at full
+    width, 50 trials x m in {10..50}, batched; 11d the floor-closing
+    ensembles on seeds 0-2; 11e the co2 plain and composite fits, and the
+    abalone and kin8nm sweeps with --quick at full N.  Each is one path of
+    the launch counts and is held to the floor pins of
+    tests/test_end_to_end.py."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_boston, surrogate_floor
+    from scfgp_tpu_torch.experiments import abalone, boston_housing, co2, kin8nm
+
+    def out(name):
+        return os.path.join(workdir, name)
+
+    # 11c
+    launches.start()
+    t = time.perf_counter()
+    sweep = boston_housing.main(["--batched", "--out", out("boston")])
+    t_sweep = time.perf_counter() - t
+    counts = launches.read("boston_sweep")
+    at = sweep["nfeats_choices"].index(SWEEP_PIN_M)
+    ratios = [a / f for a, f in zip(sweep["per_trial"]["NMSE"][at],
+                                    sweep["per_trial"]["floor_NMSE"][at])]
+    pin = float(np.mean(ratios[:3]))
+    say("boston_sweep", seconds=t_sweep, size_seconds=sweep["seconds"],
+        nfeats=sweep["nfeats_choices"], trials=sweep["trials"],
+        NMSE=sweep["metrics"]["NMSE"]["mean"],
+        MNLP=sweep["metrics"]["MNLP"]["mean"],
+        nmse_over_floor=sweep["nmse_over_floor"], plots=sweep["plots"],
+        pin_m=SWEEP_PIN_M, pin_ratios_seeds_0_2=ratios[:3], pin_mean=pin,
+        launches=counts)
+    check(pin < SWEEP_PIN, f"boston sweep: mean NMSE/floor {pin} at m="
+          f"{SWEEP_PIN_M} over seeds 0-2 is not under {SWEEP_PIN}")
+
+    # 11d
+    launches.start()
+    rows = []
+    for seed in range(3):
+        Xt, yt, Xv, yv, _ = load_boston(seed=seed)
+        m = SCFGP(sparsity=20, nfeats=20, seed=seed, device="cuda",
+                  extra_basis=boston_housing.linear_basis)
+        t = time.perf_counter()
+        m.fit_ensemble(Xt, yt, Xv, yv, k=16, mix_best=8,
+                       **dict(boston_housing.OPT, max_iter=1500,
+                              max_cvrg=40))
+        rows.append(dict(seconds=time.perf_counter() - t,
+                         NMSE=m.evals["NMSE"][1][-1],
+                         MNLP=m.evals["MNLP"][1][-1],
+                         ratio=m.evals["NMSE"][1][-1] / surrogate_floor(
+                             "boston_housing", Xv, yv)["NMSE"]))
+    counts = launches.read("boston_ensemble")
+    mean = float(np.mean([r["ratio"] for r in rows]))
+    say("boston_at_floor", k=16, mix_best=8, seeds=rows, mean_ratio=mean,
+        launches=counts)
+    check(mean < ENSEMBLE_PIN, f"boston ensembles: mean NMSE/floor {mean} "
+          f"is not under {ENSEMBLE_PIN}")
+
+    # 11e
+    launches.start()
+    t = time.perf_counter()
+    rec = co2.main(["--out", out("co2")])
+    counts = launches.read("co2")
+    say("co2", seconds=time.perf_counter() - t, **rec, launches=counts)
+    check(rec["nmse_over_floor"] < CO2_PIN, f"co2 composite: NMSE/floor "
+          f"{rec['nmse_over_floor']} is not under {CO2_PIN}")
+    for name, driver in (("abalone", abalone), ("kin8nm", kin8nm)):
+        launches.start()
+        t = time.perf_counter()
+        s = driver.main(["--quick", "--out", out(name)])
+        counts = launches.read(name)
+        say(name, seconds=time.perf_counter() - t, size_seconds=s["seconds"],
+            nfeats=s["nfeats_choices"], RMSE=s["metrics"]["RMSE"]["mean"],
+            MNLP=s["metrics"]["MNLP"]["mean"],
+            nmse_over_floor=s.get("nmse_over_floor"), launches=counts)
+        check(all(math.isfinite(v) for v in s["metrics"]["RMSE"]["mean"]),
+              f"{name}: an RMSE is not finite")
 
 
 def main():
@@ -1290,11 +1688,20 @@ def main():
         cond_A=float(ev[-1] / ev[0]), post_rel_err=e_post, tol=POST_TOL,
         launches=counts)
 
+    # 11. batched sweeps and ensembles -------------------------------------
+    k1_batch, k1b_batch = batched_kernels_phase(dev, rng)
+    batch_fit_phase(launches)
+    sweep_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_sweeps_")
+    sweeps_phase(launches, sweep_dir.name)
+    sweep_dir.cleanup()
+
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",
-                k1, k1f_work),
+                {**k1, **{"batch-" + n: r for n, r in k1_batch.items()}},
+                k1f_work),
                ("phi_bwd", "csrc/phi_bwd.cu", "scfgp_tpu/ops/phi.py:73",
-                k1b, k1b_work),
+                {**k1b, **{"batch-" + n: r for n, r in k1b_batch.items()}},
+                k1b_work),
                ("gram_fwd", "csrc/gram_fwd.cu", "scfgp_tpu/ops/gram.py:45",
                 k2f, k2f_work),
                ("gram_bwd", "csrc/gram_bwd.cu", "scfgp_tpu/ops/gram.py:85",
@@ -1318,11 +1725,15 @@ def main():
 
     def reading(row, work):
         shape = [row[key] for key in ("n", "d", "k") if key in row]
-        bound_ms, bound_by = bound(*work(*shape))
-        return dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
-                    plain_ms=row["plain_ms"], bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=row.get("library_ms"),
-                    shape=shape)
+        trials = row.get("b", 1)  # a batched launch does B trials' work
+        bound_ms, bound_by = bound(*(trials * w for w in work(*shape)))
+        out = dict(max_abs_err=row["max_abs_err"], ms=row["ms"],
+                   plain_ms=row["plain_ms"], bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=row.get("library_ms"),
+                   shape=shape)
+        if "b" in row:
+            out.update(trials=trials, two_d_ms=row["two_d_ms"])
+        return out
 
     line = []
     for name, src, replaces, rows, work in kernels:

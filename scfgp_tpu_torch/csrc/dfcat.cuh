@@ -11,6 +11,12 @@
 // slots in a fixed order, one thread an output.  Each slot entry is read,
 // added to and written by one thread, chunk after chunk, and there are no
 // atomics, so the gradient is bitwise repeatable.
+//
+// Trials (K1b's batched sweeps): the last grid axis is the trial; trial z's
+// X, dT, slots and outputs lie at fixed strides from the first trial's, so
+// each trial sums in the order a launch on it alone does.  Both kernels
+// compile the offsets in only for a launch of several trials (BATCHED);
+// K2b launches one trial, and its code is unchanged.
 
 #pragma once
 
@@ -77,13 +83,22 @@ __device__ void block_sums(const float (&v)[NV], const int (&col)[NV],
   if (tid == 0) *ds_slot = first ? red_s[0] : *ds_slot + red_s[0];
 }
 
-// One chunk: block (tile, group) adds its group's rows of X^T dT, the
-// (tile / tiles(k), tile % tiles(k)) tile of dFcat, to slot `group` of
-// `part` (groups x d x k).  X is the chunk's (rows, d), dT (rows, kpad).
+// One chunk: block (tile, group, trial) adds its group's rows of X^T dT,
+// the (tile / tiles(k), tile % tiles(k)) tile of dFcat, to slot `group` of
+// the trial's `part` (groups x d x k).  X is the chunk's (rows, d), dT
+// (rows, kpad); the trial's lie x_stride and dt_stride floats further.
+template <bool BATCHED>
 __global__ void __launch_bounds__(sgemm::THREADS, 2)
 dfcat_kernel(sgemm::Operand X, sgemm::Operand dT, float* __restrict__ part,
-             int rows, int d, int k, bool first) {
+             int rows, int d, int k, bool first, size_t x_stride,
+             size_t dt_stride) {
   __shared__ __align__(16) sgemm::Smem sm;
+  if (BATCHED) {
+    const size_t z = blockIdx.z;
+    X.p += z * x_stride;
+    dT.p += z * dt_stride;
+    part += z * gridDim.y * static_cast<size_t>(d) * k;
+  }
   const int tid = threadIdx.x;
   const int tx = sgemm::thread_x(tid);
   const int ty = sgemm::thread_y(tid);
@@ -116,22 +131,27 @@ dfcat_kernel(sgemm::Operand X, sgemm::Operand dT, float* __restrict__ part,
   }
 }
 
-// Launches dfcat_kernel for one chunk; X and dT start at the chunk's first
-// row.  Returns cudaGetLastError().
+// Launches dfcat_kernel for one chunk of each of `trials` problems; X and
+// dT start at the first trial's chunk, the others x_stride and dt_stride
+// floats apart.  Returns cudaGetLastError().
 inline cudaError_t launch(const float* X, const float* dT, float* part,
                           int rows, int d, int k, int kpad, int g, bool first,
-                          cudaStream_t st) {
+                          cudaStream_t st, int trials = 1, size_t x_stride = 0,
+                          size_t dt_stride = 0) {
   if (d == 0) return cudaSuccess;
-  const dim3 grid(tiles(d) * tiles(k), g);
-  dfcat_kernel<<<grid, sgemm::THREADS, 0, st>>>(
+  const dim3 grid(tiles(d) * tiles(k), g, trials);
+  (trials > 1 ? dfcat_kernel<true> : dfcat_kernel<false>)
+      <<<grid, sgemm::THREADS, 0, st>>>(
       sgemm::operand(X, d, d), sgemm::operand(dT, kpad, k), part, rows, d, k,
-      first);
+      first, x_stride, dt_stride);
   return cudaGetLastError();
 }
 
 // out = [dFcat (d * k) | dpcat (k) | ds]: the groups' slots of `part`
 // (groups x d * k) added in the order g = 0..groups-1, the row tiles' dpcat
 // slots (dp_slots x k) in index order, and the ds slots in index order.
+// blockIdx.y is the trial: its slots and outputs follow the first trial's.
+template <bool BATCHED>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 bwd_reduce_kernel(const float* __restrict__ part, int groups,
                   const float* __restrict__ dp_part, int dp_slots,
@@ -140,6 +160,13 @@ bwd_reduce_kernel(const float* __restrict__ part, int groups,
   const size_t j = static_cast<size_t>(blockIdx.x) * REDUCE_THREADS +
                    threadIdx.x;
   const size_t dk = static_cast<size_t>(d) * k;
+  if (BATCHED) {
+    const size_t z = blockIdx.y;
+    part += z * groups * dk;
+    dp_part += z * dp_slots * static_cast<size_t>(k);
+    ds_part += z * ds_slots;
+    out += z * (dk + k + 1);
+  }
   float v = 0.0f;
   if (j < dk) {
     for (int g = 0; g < groups; ++g) v += part[g * dk + j];
@@ -156,11 +183,14 @@ bwd_reduce_kernel(const float* __restrict__ part, int groups,
 
 inline cudaError_t reduce(const float* part, int groups, const float* dp_part,
                           int dp_slots, const float* ds_part, int ds_slots,
-                          float* out, int d, int k, cudaStream_t st) {
+                          float* out, int d, int k, cudaStream_t st,
+                          int trials = 1) {
   const size_t outputs = static_cast<size_t>(d) * k + k + 1;
-  const unsigned blocks = static_cast<unsigned>(
-      (outputs + REDUCE_THREADS - 1) / REDUCE_THREADS);
-  bwd_reduce_kernel<<<blocks, REDUCE_THREADS, 0, st>>>(
+  const dim3 blocks(static_cast<unsigned>(
+                        (outputs + REDUCE_THREADS - 1) / REDUCE_THREADS),
+                    trials);
+  (trials > 1 ? bwd_reduce_kernel<true> : bwd_reduce_kernel<false>)
+      <<<blocks, REDUCE_THREADS, 0, st>>>(
       part, groups, dp_part, dp_slots, ds_part, ds_slots, out, d, k);
   return cudaGetLastError();
 }

@@ -35,6 +35,17 @@
 // then add pcat, so the two designs give the same bits, and the same T as
 // K1b's phi_t_kernel.
 //
+// Trials: one launch maps B independent problems of one shape (a batched
+// sweep's trials).  blockIdx.z is the trial; trial z's operands lie at
+// fixed strides from the first trial's (X n*d, Fcat d*k, pcat k, s 1, out
+// n*ld floats), so each trial's blocks compute exactly what a launch on that
+// trial alone computes, and give its bits.  A stride keeps 16-byte
+// alignment wherever a row pitch does (n*d with d % 4 == 0, and so on), so
+// the vector paths stay valid for every trial.  The offsets are compiled
+// in only where a launch has more than one trial (BATCHED): moved pointers
+// live in registers (the narrow kernel went from 48 to 60), and the 2-D
+// launch keeps its code, registers and time.
+//
 // Precision: sincosf is the precise libdevice routine.  __sincosf and
 // --use_fast_math are not used: |T| reaches tens and the trig projection
 // must stay at full float32 precision (scfgp_tpu/models/objective.py:150-153).
@@ -57,12 +68,21 @@ constexpr int WIDE_D = 64;
 // ---- wide -------------------------------------------------------------
 
 // Block (row tile, column tile) of out; X (n, d) m-major, F (d, k) k-major.
+template <bool BATCHED>
 __global__ void __launch_bounds__(sgemm::THREADS, 2)
 feature_tile_kernel(sgemm::Operand X, sgemm::Operand F,
                     const float* __restrict__ pcat,
                     const float* __restrict__ scale, float* __restrict__ out,
                     int n, int d, int k, int ld, bool vec) {
   __shared__ __align__(16) sgemm::Smem sm;
+  if (BATCHED) {
+    const size_t z = blockIdx.z;
+    X.p += z * n * d;
+    F.p += z * d * k;
+    pcat += z * k;
+    if (scale != nullptr) scale += z;
+    out += z * n * ld;
+  }
   const int tid = threadIdx.x;
   const int tx = sgemm::thread_x(tid);
   const int ty = sgemm::thread_y(tid);
@@ -120,6 +140,7 @@ constexpr int THREADS_Y = 4;
 constexpr int THREADS = TILE_K * THREADS_Y;
 constexpr int ROWS_PER_THREAD = TILE_N / THREADS_Y;
 
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 feature_kernel(const float* __restrict__ X, const float* __restrict__ Fcat,
                const float* __restrict__ pcat,
@@ -129,6 +150,14 @@ feature_kernel(const float* __restrict__ X, const float* __restrict__ Fcat,
   __shared__ float xs[TILE_N][CHUNK_D + 1];
   __shared__ float fs[CHUNK_D][TILE_K];
 
+  if (BATCHED) {
+    const size_t z = blockIdx.z;
+    X += z * n * d;
+    Fcat += z * d * k;
+    pcat += z * k;
+    if (scale != nullptr) scale += z;
+    out += z * n * ld;
+  }
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * TILE_K + tx;
@@ -182,24 +211,26 @@ feature_kernel(const float* __restrict__ X, const float* __restrict__ Fcat,
   }
 }
 
-// Launches the design D chooses for n rows on `stream`, out's row pitch
-// ld >= 2k; returns cudaGetLastError().
+// Launches the design D chooses for n rows of each of `trials` problems on
+// `stream`, out's row pitch ld >= 2k; returns cudaGetLastError().
 inline cudaError_t launch(const float* X, const float* Fcat, const float* pcat,
                           const float* scale, float* out, int n, int d, int k,
-                          int ld, cudaStream_t stream) {
+                          int ld, cudaStream_t stream, int trials = 1) {
   if (d >= WIDE_D) {
     const dim3 grid((n + sgemm::BM - 1) / sgemm::BM,
-                    (k + sgemm::BM - 1) / sgemm::BM);
+                    (k + sgemm::BM - 1) / sgemm::BM, trials);
     const bool vec = reinterpret_cast<std::uintptr_t>(out) % 16 == 0 &&
                      ld % 4 == 0 && k % 4 == 0;
-    feature_tile_kernel<<<grid, sgemm::THREADS, 0, stream>>>(
+    (trials > 1 ? feature_tile_kernel<true> : feature_tile_kernel<false>)
+        <<<grid, sgemm::THREADS, 0, stream>>>(
         sgemm::operand(X, d, n), sgemm::operand(Fcat, k, k), pcat, scale, out,
         n, d, k, ld, vec);
   } else {
     const dim3 block(TILE_K, THREADS_Y);
-    const dim3 grid((n + TILE_N - 1) / TILE_N, (k + TILE_K - 1) / TILE_K);
-    feature_kernel<<<grid, block, 0, stream>>>(X, Fcat, pcat, scale, out, n,
-                                               d, k, ld);
+    const dim3 grid((n + TILE_N - 1) / TILE_N, (k + TILE_K - 1) / TILE_K,
+                    trials);
+    (trials > 1 ? feature_kernel<true> : feature_kernel<false>)
+        <<<grid, block, 0, stream>>>(X, Fcat, pcat, scale, out, n, d, k, ld);
   }
   return cudaGetLastError();
 }

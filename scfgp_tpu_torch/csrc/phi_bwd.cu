@@ -55,10 +55,24 @@
 // (experiments/kernel_ab.py, PERF.md PR 7): 0.161 ms at the streaming block
 // (phi_t_kernel 83 us, dfcat_kernel 65, the reduce 9; the previous design
 // 0.779), 0.118 ms at (4096, 256, 500) (0.333), and 0.0476 ms at kin8nm
-// (narrow, unchanged).
+// (narrow, unchanged).  Batched instances (chip_smoke.py phase 11a): 80
+// registers in phi_bwd_partial_kernel, 125 in phi_t_kernel; 50 boston
+// trials (455, 13, 70) 0.042 ms in one call against 0.81 for 50 calls.
 //
 // Precision: sincosf is the precise libdevice routine, no fast math, fp32
 // accumulation throughout (scfgp_tpu/models/objective.py:150-153).
+//
+// Trials: one call takes B independent problems of one shape (a batched
+// sweep's trials; the Pallas kernel gets them as a leading grid axis under
+// jax.vmap).  Every stage's last grid axis is the trial, and each trial
+// has its own share of the workspace (the workspace is B times one
+// trial's), so every sum over rows runs in the order a call on that trial
+// alone takes: trial b's gradient is bitwise the 2-D call's, with the same
+// number of launches whatever B.  The offsets are compiled in only where a
+// call has more than one trial (BATCHED: moved pointers live in registers,
+// 64 -> 80 in phi_bwd_partial_kernel, and the reduce, whose serial loads
+// bound it, took 13% longer at kin8nm with them, 18.6 -> 21.0 us, the
+// whole 2-D call 5% longer), so the 2-D call keeps its code and its time.
 
 #include <cuda_runtime.h>
 
@@ -108,15 +122,34 @@ size_t wide_workspace(const Plan& p, int d, int k) {
          static_cast<size_t>(p.rtiles) * p.ctiles;
 }
 
+// Floats between two trials' blocks of each operand and each workspace
+// part.
+struct Strides {
+  size_t x, f, g, dT, dp, ds;
+};
+
 // One chunk: X and g offset to the chunk.  Writes dT (rows, kpad) and adds
-// to the dpcat slots (rtiles x k) and the ds slots (rtiles x ctiles).
+// to the dpcat slots (rtiles x k) and the ds slots (rtiles x ctiles), of
+// trial blockIdx.z.
+template <bool BATCHED>
 __global__ void __launch_bounds__(sgemm::THREADS, 2)
 phi_t_kernel(sgemm::Operand X, sgemm::Operand F,
              const float* __restrict__ pcat, const float* __restrict__ scale,
              const float* __restrict__ g, float* __restrict__ dT,
              float* __restrict__ dp_part, float* __restrict__ ds_part,
-             int rows, int d, int k, int kpad, bool first) {
+             int rows, int d, int k, int kpad, bool first, Strides st) {
   __shared__ __align__(16) sgemm::Smem sm;
+  if (BATCHED) {
+    const size_t z = blockIdx.z;
+    X.p += z * st.x;
+    F.p += z * st.f;
+    pcat += z * k;
+    scale += z;
+    g += z * st.g;
+    dT += z * st.dT;
+    dp_part += z * st.dp;
+    ds_part += z * st.ds;
+  }
   const int tid = threadIdx.x;
   const int tx = sgemm::thread_x(tid);
   const int ty = sgemm::thread_y(tid);
@@ -176,32 +209,44 @@ phi_t_kernel(sgemm::Operand X, sgemm::Operand F,
       ds_part + blockIdx.x * gridDim.y + blockIdx.y, first);
 }
 
+// The workspace holds each part for all trials, trial after trial: dT
+// (trials x chunk_rows x kpad), the group slots, the dpcat slots, the ds
+// slots.
 int wide(const float* X, const float* Fcat, const float* pcat,
-         const float* scale, const float* g, float* work, float* out, int n,
-         int d, int k, cudaStream_t st) {
+         const float* scale, const float* g, float* work, float* out,
+         int trials, int n, int d, int k, cudaStream_t st) {
   const Plan p = plan(n, d, k);
+  Strides s;
+  s.x = static_cast<size_t>(n) * d;
+  s.f = static_cast<size_t>(d) * k;
+  s.g = static_cast<size_t>(n) * 2 * k;
+  s.dT = static_cast<size_t>(p.chunk_rows) * p.kpad;
+  s.dp = static_cast<size_t>(p.rtiles) * k;
+  s.ds = static_cast<size_t>(p.rtiles) * p.ctiles;
   float* dT = work;
-  float* part = dT + static_cast<size_t>(p.chunk_rows) * p.kpad;
-  float* dp_part = part + static_cast<size_t>(p.groups) * d * k;
-  float* ds_part = dp_part + static_cast<size_t>(p.rtiles) * k;
+  float* part = dT + trials * s.dT;
+  float* dp_part = part + trials * static_cast<size_t>(p.groups) * d * k;
+  float* ds_part = dp_part + trials * s.dp;
   const sgemm::Operand F = sgemm::operand(Fcat, k, k);
   for (int row0 = 0; row0 < n; row0 += p.chunk_rows) {
     const int rows = min(p.chunk_rows, n - row0);
     const bool first = row0 == 0;
     const float* Xc = X + static_cast<size_t>(row0) * d;
-    const dim3 grid(dfcat::tiles(rows), p.ctiles);
-    phi_t_kernel<<<grid, sgemm::THREADS, 0, st>>>(
+    const dim3 grid(dfcat::tiles(rows), p.ctiles, trials);
+    (trials > 1 ? phi_t_kernel<true> : phi_t_kernel<false>)
+        <<<grid, sgemm::THREADS, 0, st>>>(
         sgemm::operand(Xc, d, rows), F, pcat, scale,
         g + static_cast<size_t>(row0) * 2 * k, dT, dp_part, ds_part, rows, d,
-        k, p.kpad, first);
+        k, p.kpad, first, s);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = dfcat::launch(Xc, dT, part, rows, d, k, p.kpad, p.groups, first, st);
+    err = dfcat::launch(Xc, dT, part, rows, d, k, p.kpad, p.groups, first, st,
+                        trials, s.x, s.dT);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(dfcat::reduce(part, p.groups, dp_part, p.rtiles,
                                         ds_part, p.rtiles * p.ctiles, out, d,
-                                        k, st));
+                                        k, st, trials));
 }
 
 // ---- narrow -----------------------------------------------------------
@@ -243,7 +288,9 @@ int row_groups(int n, int d, int k) {
 // of the tile's X^T dT, summed over the 64 rows in order and added to its
 // workspace slot (read-add-write by the one thread that owns it).  dpcat
 // and ds are summed per thread across the tiles and then across the block
-// in a fixed order.
+// in a fixed order.  blockIdx.z is the trial: its operands and its G slots
+// lie at fixed strides from the first trial's.
+template <bool BATCHED>
 __global__ void __launch_bounds__(THREADS)
 phi_bwd_partial_kernel(const float* __restrict__ X,
                        const float* __restrict__ Fcat,
@@ -255,6 +302,15 @@ phi_bwd_partial_kernel(const float* __restrict__ X,
   __shared__ float fs[CHUNK_D][TILE_K];
   __shared__ float dts[TILE_N][TILE_K];
 
+  if (BATCHED) {
+    const size_t z = blockIdx.z;
+    X += z * n * d;
+    Fcat += z * d * k;
+    pcat += z * k;
+    scale += z;
+    g += z * n * 2 * k;
+    part += z * gridDim.x * width;
+  }
   const int tx = threadIdx.x;
   const int ty = threadIdx.y;
   const int tid = ty * TILE_K + tx;
@@ -366,10 +422,17 @@ phi_bwd_partial_kernel(const float* __restrict__ X,
 
 // out[j] = sum over row groups of part[group][j] for the dFcat and dpcat
 // entries; the last output adds every group's per-column-tile ds as well.
+// blockIdx.y is the trial.
+template <bool BATCHED>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 phi_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
                       int groups, size_t width, size_t n_dk_k, int ktiles) {
   const size_t j = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (BATCHED) {
+    const size_t z = blockIdx.y;
+    part += z * groups * width;
+    out += z * (n_dk_k + 1);
+  }
   if (j < n_dk_k) {
     float v = 0.0f;
     for (int grp = 0; grp < groups; ++grp) v += part[grp * width + j];
@@ -387,20 +450,23 @@ size_t workspace(int n, int d, int k) {
 }
 
 int launch(const float* X, const float* Fcat, const float* pcat,
-           const float* scale, const float* g, float* part, float* out, int n,
-           int d, int k, cudaStream_t st) {
+           const float* scale, const float* g, float* part, float* out,
+           int trials, int n, int d, int k, cudaStream_t st) {
   const int groups = row_groups(n, d, k);
   const size_t width = slot_width(d, k);
   const dim3 block(TILE_K, THREADS_Y);
-  const dim3 grid(groups, col_tiles(k));
-  phi_bwd_partial_kernel<<<grid, block, 0, st>>>(X, Fcat, pcat, scale, g,
-                                                  part, width, n, d, k);
+  const dim3 grid(groups, col_tiles(k), trials);
+  (trials > 1 ? phi_bwd_partial_kernel<true> : phi_bwd_partial_kernel<false>)
+      <<<grid, block, 0, st>>>(X, Fcat, pcat, scale, g, part, width, n, d, k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n_dk_k = static_cast<size_t>(d) * k + k;
-  const unsigned reduce_blocks = static_cast<unsigned>(
-      (n_dk_k + 1 + REDUCE_THREADS - 1) / REDUCE_THREADS);
-  phi_bwd_reduce_kernel<<<reduce_blocks, REDUCE_THREADS, 0, st>>>(
+  const dim3 reduce_blocks(static_cast<unsigned>(
+                               (n_dk_k + 1 + REDUCE_THREADS - 1) /
+                               REDUCE_THREADS),
+                           trials);
+  (trials > 1 ? phi_bwd_reduce_kernel<true> : phi_bwd_reduce_kernel<false>)
+      <<<reduce_blocks, REDUCE_THREADS, 0, st>>>(
       part, out, groups, width, n_dk_k, col_tiles(k));
   return static_cast<int>(cudaGetLastError());
 }
@@ -410,26 +476,31 @@ int launch(const float* X, const float* Fcat, const float* pcat,
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  Floats of workspace the launch
-// needs for these shapes.
-extern "C" size_t scfgp_phi_bwd_workspace(int n, int d, int k) {
-  if (d < WIDE_D) return narrow::workspace(n, d, k);
-  return wide_workspace(plan(n, d, k), d, k);
+// needs for `trials` problems of these shapes.
+extern "C" size_t scfgp_phi_bwd_workspace(int trials, int n, int d, int k) {
+  const size_t one = d < WIDE_D ? narrow::workspace(n, d, k)
+                                : wide_workspace(plan(n, d, k), d, k);
+  return static_cast<size_t>(trials) * one;
 }
 
-// Every pointer is a device pointer to contiguous float32 data: g is
-// (n, 2k), `part` holds scfgp_phi_bwd_workspace(n, d, k) floats, and `out`
-// d*k + k + 1 floats that receive [dFcat (d, k) | dpcat (k) | ds].  n >= 1,
-// k >= 1.  Launches every stage on `stream` (a cudaStream_t), does not
-// synchronise, allocates nothing, and returns the first cudaGetLastError()
-// code that is not 0 (0 on success).
+// Every pointer is a device pointer to contiguous float32 data holding
+// `trials` problems one after another: X (trials, n, d), Fcat (trials, d,
+// k), pcat (trials, k), scale (trials,), g (trials, n, 2k); `part` holds
+// scfgp_phi_bwd_workspace(trials, n, d, k) floats, and `out` trials x
+// (d*k + k + 1) floats that receive [dFcat (d, k) | dpcat (k) | ds] of each
+// trial.  n >= 1, k >= 1, trials >= 1.  Launches every stage on `stream` (a
+// cudaStream_t), does not synchronise, allocates nothing, and returns the
+// first cudaGetLastError() code that is not 0 (0 on success).
 extern "C" int scfgp_phi_bwd_f32(const float* X, const float* Fcat,
                                  const float* pcat, const float* scale,
                                  const float* g, float* part, float* out,
-                                 int n, int d, int k, void* stream) {
+                                 int trials, int n, int d, int k,
+                                 void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (d < WIDE_D)
-    return narrow::launch(X, Fcat, pcat, scale, g, part, out, n, d, k, st);
-  return wide(X, Fcat, pcat, scale, g, part, out, n, d, k, st);
+    return narrow::launch(X, Fcat, pcat, scale, g, part, out, trials, n, d, k,
+                          st);
+  return wide(X, Fcat, pcat, scale, g, part, out, trials, n, d, k, st);
 }
 
 extern "C" const char* scfgp_cuda_error_string(int code) {

@@ -28,26 +28,37 @@
 //
 // Registers and shared memory (ptxas, sm_90a), no spills:
 // feature_tile_kernel 119 and 16,896 bytes, feature_kernel 48 and 16,640
-// (each with the 32-byte stack frame of sincosf's slow path).  Device time
-// on an NVIDIA H100 80GB HBM3 at 700.00 W (experiments/kernel_ab.py,
-// PERF.md §6): 0.068 ms at the streaming block (~32 TFLOP/s; the previous
-// one-design kernel, now the narrow one, 0.178), 0.040 ms at (4096, 256,
-// 500) (0.094), 0.0124 ms at kin8nm and bench, where the wide design took
-// 0.029-0.031.
+// (each with the 32-byte stack frame of sincosf's slow path); their
+// batched instances 126 and 60.  Device time on an NVIDIA H100 80GB HBM3
+// at 700.00 W (experiments/kernel_ab.py, PERF.md §6): 0.068 ms at the
+// streaming block (~32 TFLOP/s; the previous one-design kernel, now the
+// narrow one, 0.178), 0.040 ms at (4096, 256, 500) (0.094), 0.0124 ms at
+// kin8nm and bench, where the wide design took 0.029-0.031.  Batched
+// (chip_smoke.py phase 11a): 50 boston trials (455, 13, 70) 0.019 ms in
+// one launch against 0.35 for 50 launches; at kin8nm and D = 256, where a
+// trial fills the card, about B times one trial's time.
+//
+// Trials: the batched entry below launches B problems of one shape at once
+// (features.cuh: blockIdx.z is the trial).
 
 #include "features.cuh"
 
 // Plain C interface, loaded with ctypes.  Every pointer is a device pointer
-// to contiguous float32 data; `stream` is a cudaStream_t.  Launches on that
-// stream, does not synchronise, allocates nothing, and returns the
-// cudaGetLastError() code of the launch (0 on success).
+// to contiguous float32 data holding `trials` problems one after another:
+// X (trials, n, d), Fcat (trials, d, k), pcat (trials, k), scale (trials,),
+// out (trials, n, 2k).  One launch maps them all (blockIdx.z is the trial);
+// each trial gets the bits a launch with trials = 1 on its own data gives.
+// `stream` is a cudaStream_t.  Launches on that stream, does not
+// synchronise, allocates nothing, and returns the cudaGetLastError() code
+// of the launch (0 on success).
 extern "C" int scfgp_phi_fwd_f32(const float* X, const float* Fcat,
                                  const float* pcat, const float* scale,
-                                 float* out, int n, int d, int k,
+                                 float* out, int trials, int n, int d, int k,
                                  void* stream) {
   return static_cast<int>(features::launch(X, Fcat, pcat, scale, out, n, d, k,
                                            2 * k,
-                                           static_cast<cudaStream_t>(stream)));
+                                           static_cast<cudaStream_t>(stream),
+                                           trials));
 }
 
 extern "C" const char* scfgp_cuda_error_string(int code) {

@@ -1,10 +1,11 @@
-"""Dataset loaders (boston, abalone, kin8nm) and the scaling synthetics.
+"""Dataset loaders (boston, abalone, kin8nm, co2), the surrogates' Bayes
+floors, and the scaling synthetics.
 
-A NumPy-only carry of ``scfgp_tpu/data/datasets.py:43-373`` (the split, the
-real-file sniffing and the deterministic synthetic surrogates) and of its
-synthetics ``synthetic_gp_rff`` and ``synthetic_large`` (``:584-610``), so
-the port loads the same rows as the JAX package without importing it.  Each
-loader:
+A NumPy-only carry of ``scfgp_tpu/data/datasets.py:43-582`` (the split, the
+real-file sniffing, the deterministic synthetic surrogates and their floor
+oracles) and of its synthetics ``synthetic_gp_rff`` and ``synthetic_large``
+(``:584-610``), so the port loads the same rows and measures the same
+floors as the JAX package without importing it.  Each loader:
 
 1. loads a real file from ``experiments/data/`` if one is present (schemas
    below), else
@@ -13,8 +14,9 @@ loader:
 
 All loaders return ``(X_train, y_train, X_valid, y_valid, meta)`` with the
 reference's split proportions and take a ``seed`` for the split RNG
-(``reference: experiments/boston_housing/boston_housing.py:80``).  The
-surrogate floor oracles and co2 are not carried yet.
+(``reference: experiments/boston_housing/boston_housing.py:80``).
+``surrogate_floor`` gives the Bayes floor of a surrogate's held-out split,
+the anchor of the sweeps' ``nmse_over_floor``.
 """
 
 from __future__ import annotations
@@ -60,6 +62,13 @@ def _split(X, y, prop, rng):
 #   kin8nm   kin8nm.csv | kin8nm.data | dataset_2175_kin8nm.csv
 #            DELVE/OpenML: 9 numeric columns (theta1..theta8, y last),
 #            comma- or whitespace-separated, optional header.
+#   co2      co2_mm_mlo.txt | co2_mm_mlo.csv | co2.csv | mauna_loa.csv
+#            Either the NOAA monthly Mauna Loa file (comment lines start
+#            with '#'; columns ``year month decimal_date average
+#            [deseasonalized ...]``; missing averages coded -99.99 fall back
+#            to the deseasonalized column or are dropped), or a simple
+#            2-column table (time, ppm).  X is the (1-D) time coordinate and
+#            y the ppm series (experiments/co2/CO2_1d_regression.py:45-58).
 #
 # Every parser is format-sniffing (delimiter + header detection), returns
 # float64; the port's copies are held equal to the JAX package's on its
@@ -69,6 +78,7 @@ _REAL_FILES = {
     "boston": ("boston.csv", "boston.data", "housing.data", "housing.csv"),
     "abalone": ("abalone.csv", "abalone.data"),
     "kin8nm": ("kin8nm.csv", "kin8nm.data", "dataset_2175_kin8nm.csv"),
+    "co2": ("co2_mm_mlo.txt", "co2_mm_mlo.csv", "co2.csv", "mauna_loa.csv"),
 }
 
 
@@ -182,10 +192,33 @@ def _load_real_kin8nm(path):
     return arr[:, :8], arr[:, 8]
 
 
+def _load_real_co2(path):
+    """Mauna Loa CO2: NOAA monthly file or a simple (time, ppm) table."""
+    rows = _parse_table(path)
+    ncols = len(rows[0])
+    if ncols >= 4:
+        # NOAA co2_mm_mlo: year month decimal_date average [deseason ...]
+        arr = _numeric_block(rows, path)
+        t, avg = arr[:, 2], arr[:, 3]
+        missing = avg <= -99.0
+        if ncols >= 5:
+            avg = np.where(missing, arr[:, 4], avg)
+            missing = avg <= -99.0
+        keep = ~missing
+        return t[keep, None], avg[keep]
+    if ncols == 2:
+        arr = _numeric_block(rows, path)
+        return arr[:, :1], arr[:, 1]
+    raise ValueError(
+        f"{path}: co2 needs the NOAA monthly format (>=4 columns) or a "
+        f"2-column (time, ppm) table, got {ncols} columns")
+
+
 _REAL_PARSERS = {
     "boston": _load_real_boston,
     "abalone": _load_real_abalone,
     "kin8nm": _load_real_kin8nm,
+    "co2": _load_real_co2,
 }
 
 
@@ -316,6 +349,212 @@ def load_kin8nm(prop: float = 0.8, seed: Optional[int] = None):
         source = "synthetic-surrogate"
     Xt, yt, Xv, yv = _split(X, y, prop, rng)
     return Xt, yt, Xv, yv, {"name": "kin8nm", "source": source}
+
+
+# -- co2 (1-D monthly series, extrapolation demo) ---------------------------
+
+def _synthetic_co2(rng):
+    """Mauna-Loa-like monthly series: quadratic trend + seasonal harmonics."""
+    months = np.arange(526)  # ~1958-2001 monthly, like fetch_mldata's copy
+    t = months / 12.0
+    ppm = (314.7 + 0.75 * t + 0.0125 * t**2
+           + 2.87 * np.sin(2 * np.pi * t + 0.35)
+           + 0.8 * np.sin(4 * np.pi * t + 1.3)
+           + 0.25 * rng.randn(months.shape[0]))
+    return months[:, None].astype(float), ppm
+
+
+def load_co2(prop: float = 0.8, seed: Optional[int] = None):
+    rng = np.random.RandomState(seed)
+    real = _try_csv("co2")
+    if real is not None:
+        X, y = real
+        X = X.reshape(-1, 1)
+        source = "real"
+    else:
+        X, y = _synthetic_co2(np.random.RandomState(526))
+        source = "synthetic-surrogate"
+    Xt, yt, Xv, yv = _split(X, y, prop, rng)
+    return Xt, yt, Xv, yv, {"name": "co2", "source": source}
+
+
+# -- surrogate floor oracles -------------------------------------------------
+#
+# Each surrogate's generative process above is known exactly, so the Bayes-
+# optimal (conditional-mean) predictor is computable in closed form — the
+# measured "floor" any regressor can reach on these splits.  This is the
+# parity anchor when real CSVs are absent: a model matching the reference's
+# *real-data* quality should land within a small factor of the surrogate
+# floor here (VERDICT.md round 1, item 1).  Only meaningful when the loader
+# reported source == "synthetic-surrogate".
+
+def _norm_pdf(z):
+    return np.exp(-0.5 * z * z) / np.sqrt(2 * np.pi)
+
+
+def _norm_cdf(z):
+    from math import erf
+    return 0.5 * (1.0 + np.vectorize(erf)(z / np.sqrt(2.0)))
+
+
+def _clipped_normal_mean(f, sigma, lo, hi):
+    """E[clip(Z, lo, hi)] for Z ~ N(f, sigma^2), elementwise."""
+    a = (lo - f) / sigma
+    b = (hi - f) / sigma
+    Fa, Fb = _norm_cdf(a), _norm_cdf(b)
+    return lo * Fa + hi * (1.0 - Fb) + f * (Fb - Fa) \
+        + sigma * (_norm_pdf(a) - _norm_pdf(b))
+
+
+def _clipped_normal_var(f, sigma, lo, hi):
+    """Var[clip(Z, lo, hi)] for Z ~ N(f, sigma^2), elementwise.
+
+    E[X^2] = lo^2 F(a) + hi^2 (1-F(b)) + int_a^b (f + s z)^2 phi(z) dz with
+    int z phi = phi(a)-phi(b) and int z^2 phi = (F(b)-F(a)) + a phi(a) -
+    b phi(b)."""
+    a = (lo - f) / sigma
+    b = (hi - f) / sigma
+    Fa, Fb = _norm_cdf(a), _norm_cdf(b)
+    pa, pb = _norm_pdf(a), _norm_pdf(b)
+    mid = Fb - Fa
+    ex2 = (lo ** 2 * Fa + hi ** 2 * (1.0 - Fb)
+           + f ** 2 * mid + 2.0 * f * sigma * (pa - pb)
+           + sigma ** 2 * (mid + a * pa - b * pb))
+    m = _clipped_normal_mean(f, sigma, lo, hi)
+    return np.maximum(ex2 - m ** 2, 1e-12)
+
+
+def oracle_boston(X):
+    """E[y | X] for the boston surrogate (columns as _synthetic_boston)."""
+    chas, nox, rm, dis = X[:, 3], X[:, 4], X[:, 5], X[:, 7]
+    ptratio, b, lstat = X[:, 10], X[:, 11], X[:, 12]
+    f = (22.5 + 5.0 * (rm - 6.3) - 0.35 * (lstat - 12.0)
+         - 9.0 * (nox - 0.55) + 2.0 * chas
+         - 0.25 * (ptratio - 18.4) + 0.04 * (b - 356) / 3.0
+         + 1.5 * np.sin(dis))
+    return _clipped_normal_mean(f, 2.5, 5.0, 50.0)
+
+
+def oracle_abalone(X):
+    """Plug-in E[rings | X] for the abalone surrogate.
+
+    ``length`` is the (noisy) sufficient statistic for the latent growth
+    factor — every other morphometric derives from length — so the plug-in
+    inversion growth ≈ (length - 0.15)/0.45 is near-optimal; the residual
+    noise (rings noise 2.2, propagated growth noise 11*0.02/0.45 ≈ 0.49,
+    rounding) IS the floor."""
+    infant = X[:, 2]
+    length, whole, shell = X[:, 3], X[:, 6], X[:, 9]
+    growth = np.clip((length - 0.15) / 0.45, 0.05, 1.2)
+    f = 3.5 + 11.0 * growth - 2.0 * infant + 4.0 * shell / (whole + 0.05)
+    sigma = np.sqrt(2.2 ** 2 + (11.0 * 0.02 / 0.45) ** 2)
+    return _clipped_normal_mean(f, sigma, 1.0, 29.0)
+
+
+def oracle_kin8nm(X):
+    """E[y | theta]: the arm kinematics are deterministic given the angles."""
+    lengths = np.full(8, 1.0 / 8)
+    cum = np.cumsum(X, axis=1)
+    x = (lengths * np.cos(cum)).sum(axis=1)
+    yy = (lengths * np.sin(cum)).sum(axis=1)
+    z = (lengths * np.sin(X * 1.5)).sum(axis=1) * 0.3
+    target = np.array([0.2, 0.3, 0.1])
+    return np.sqrt((x - target[0]) ** 2 + (yy - target[1]) ** 2
+                   + (z - target[2]) ** 2)
+
+
+def oracle_co2(X):
+    """E[ppm | month]: deterministic trend + harmonics."""
+    t = X[:, 0] / 12.0
+    return (314.7 + 0.75 * t + 0.0125 * t ** 2
+            + 2.87 * np.sin(2 * np.pi * t + 0.35)
+            + 0.8 * np.sin(4 * np.pi * t + 1.3))
+
+
+ORACLES = {
+    "boston_housing": oracle_boston,
+    "abalone": oracle_abalone,
+    "kin8nm": oracle_kin8nm,
+    "co2": oracle_co2,
+}
+
+
+# Conditional predictive STD oracles (per point), from each surrogate's
+# known noise model — the calibration floor that anchors MNLP the way the
+# mean oracles anchor NMSE (round-2 VERDICT item 6).  The MNLP *metric* is
+# Gaussian (utils/metrics.py), so the floor is the best GAUSSIAN predictive:
+# mu = E[y|x], sigma^2 = Var[y|x].
+
+def oracle_std_boston(X):
+    """Clipped-normal residual: y = clip(N(f, 2.5), 5, 50)."""
+    chas, nox, rm, dis = X[:, 3], X[:, 4], X[:, 5], X[:, 7]
+    ptratio, b, lstat = X[:, 10], X[:, 11], X[:, 12]
+    f = (22.5 + 5.0 * (rm - 6.3) - 0.35 * (lstat - 12.0)
+         - 9.0 * (nox - 0.55) + 2.0 * chas
+         - 0.25 * (ptratio - 18.4) + 0.04 * (b - 356) / 3.0
+         + 1.5 * np.sin(dis))
+    return np.sqrt(_clipped_normal_var(f, 2.5, 5.0, 50.0))
+
+
+def oracle_std_abalone(X):
+    """Rings noise 2.2 + propagated growth noise (11*0.02/0.45) +
+    round-to-integer variance 1/12, through the [1, 29] clip."""
+    infant = X[:, 2]
+    length, whole, shell = X[:, 3], X[:, 6], X[:, 9]
+    growth = np.clip((length - 0.15) / 0.45, 0.05, 1.2)
+    f = 3.5 + 11.0 * growth - 2.0 * infant + 4.0 * shell / (whole + 0.05)
+    sigma = np.sqrt(2.2 ** 2 + (11.0 * 0.02 / 0.45) ** 2 + 1.0 / 12.0)
+    return np.sqrt(_clipped_normal_var(f, sigma, 1.0, 29.0))
+
+
+def oracle_std_kin8nm(X):
+    """Heteroscedastic: y = dist (1 + 0.03 e1) + 0.02 e2."""
+    dist = oracle_kin8nm(X)
+    return np.sqrt((0.03 * dist) ** 2 + 0.02 ** 2)
+
+
+def oracle_std_co2(X):
+    return np.full(X.shape[0], 0.25)
+
+
+ORACLE_STDS = {
+    "boston_housing": oracle_std_boston,
+    "abalone": oracle_std_abalone,
+    "kin8nm": oracle_std_kin8nm,
+    "co2": oracle_std_co2,
+}
+
+
+def surrogate_floor(name: str, Xv, yv) -> dict:
+    """Bayes-floor metrics of the named surrogate on a held-out split.
+
+    Evaluates the closed-form conditional-mean oracle — no model can do
+    better in expectation — plus the Bayes-optimal MNLP (Gaussian
+    predictive at the true conditional mean/std; no Gaussian-metric
+    calibration can beat it in expectation).  Returns the floor in the same
+    metric definitions the experiments report (utils/metrics.py)."""
+    Xv = np.asarray(Xv, np.float64)
+    pred = ORACLES[name](Xv)
+    std = ORACLE_STDS[name](Xv)
+    yv = np.asarray(yv, np.float64).reshape(-1)
+    err = yv - pred
+    mse = float(np.mean(err ** 2))
+    mnlp = float(np.mean(0.5 * (err / std) ** 2
+                         + 0.5 * np.log(2 * np.pi * std ** 2)))
+    # Best single-sigma Gaussian (sigma^2 = mse minimizes the Gaussian MNLP):
+    # the floor WITHIN the homoscedastic family SCFGP's scalar dispersion c
+    # lives in.  On heteroscedastic surrogates (kin8nm: noise scales with
+    # the target) MNLP_HOMO is the fair calibration anchor; MNLP (above) is
+    # the unrestricted Bayes floor.
+    mnlp_homo = float(0.5 * (1.0 + np.log(2 * np.pi * mse)))
+    return {
+        "MAE": float(np.mean(np.abs(err))),
+        "MSE": mse,
+        "RMSE": float(np.sqrt(mse)),
+        "NMSE": mse / float(np.var(yv)),
+        "MNLP": mnlp,
+        "MNLP_HOMO": mnlp_homo,
+    }
 
 
 # -- synthetics for tests and scaling benchmarks ----------------------------

@@ -8,7 +8,9 @@
 Builds ``DIR/<kernel>.cu`` (default: this package's ``csrc``) with the
 package's nvcc flags and ``-I DIR`` into a temporary directory, so a parent
 tree unpacked by ``git archive`` is timed with its own headers.  The C
-interfaces are this package's (``ops/phi.py``, ``ops/gram.py``).  For each
+interfaces are this package's (``ops/phi.py``, ``ops/gram.py``): K1f's and
+K1b's take a trial count, which this script sets to 1, so a tree whose
+K1f/K1b entries take none cannot be timed for those two.  For each
 kernel and shape (N, D, K) of SHAPES it prints one JSON line: ``ms``, the
 device time per call (``utils/profiling.py::time_fn``, the host's enqueue
 hidden, median of REPS), ``max_abs_err`` of each output against the plain
@@ -95,7 +97,8 @@ def call_and_ref(lib, name, t, n, d, k):
         ref = [fourier_features_ref(X, F, p, s)]
     elif name == "phi_bwd":
         out = torch.empty(d * k + k + 1, device=dev)
-        work = torch.empty(lib.scfgp_phi_bwd_workspace(n, d, k), device=dev)
+        work = torch.empty(lib.scfgp_phi_bwd_workspace(1, n, d, k),
+                           device=dev)
         args = ptr + [t["g"].data_ptr(), work.data_ptr(), out.data_ptr()]
         fn = lib.scfgp_phi_bwd_f32
         outs = [out[:d * k].view(d, k), out[d * k:d * k + k], out[-1]]
@@ -118,8 +121,10 @@ def call_and_ref(lib, name, t, n, d, k):
         outs = [out[:d * k].view(d, k), out[d * k:d * k + k], out[-1]]
         ref = gram_bwd_ref(X, t["y"], None, F, p, s, t["cbar"], t["pbar"])
 
+    ints = (1, n, d, k) if name.startswith("phi") else (n, d, k)  # trials
+
     def call():
-        rc = fn(*args, n, d, k, torch.cuda.current_stream().cuda_stream)
+        rc = fn(*args, *ints, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"{name} failed: cuda error {rc}")
     return call, outs, ref

@@ -11,11 +11,19 @@ when there is no card.  Serving steps are forward only and run under
 arrays-only npz+JSON files (``utils/checkpoint.py``): each package loads
 what the other saves, training-resume state included.
 
+Batched sweeps and ensembles: ``fit_fast_batch`` trains B same-shape
+models in one fused loop over a leading trial axis
+(``opt/fused_loop.py::fused_optimize_batch``), each step one loss and
+gradient for all B trials, so K1f and K1b launch once a step whatever B;
+``fit_ensemble`` trains k restarts that way and predicts with their
+mixture.
+
 Not ported yet, each raising ``NotImplementedError`` with the ROADMAP.md
-item that brings it: the ``visualizer`` argument, ``mesh=``,
-``fit_fast_batch``, ``fit_ensemble`` and ``fit_bayes``.  The JAX package's
-non-finite refit under an auto-resolved 1-pass TPU matmul precision
-(``_precision_fallback_needed``, ``model.py:1488-1518``) has no
+item that brings it: the ``visualizer`` argument, ``mesh=`` (of
+``optimize_fused`` and ``fit_fast_batch``) and ``fit_bayes``.  The JAX
+package's non-finite refit under an auto-resolved 1-pass TPU matmul
+precision (``_precision_fallback_needed``, ``model.py:1488-1518``, and
+its per-trial form in ``fit_fast_batch``, ``:310-322``) has no
 counterpart: the port computes in IEEE float32 with TF32 off, so the
 condition it guards can never arise.
 """
@@ -32,7 +40,8 @@ import numpy as np
 import torch
 
 from ..data.scaler import Scaler, backward_transform_stateless
-from ..opt.fused_loop import fused_optimize, set_generator_state
+from ..opt.fused_loop import (fused_optimize, fused_optimize_batch,
+                              set_generator_state)
 from ..opt.optimizers import algos, make_optimizer, tree_add, tree_map
 from ..utils.logging import MetricLogger
 from ..utils.metrics import new_evals_dict, regression_metrics
@@ -57,8 +66,157 @@ def _not_ported(what: str, item: str):
 
 
 def fit_fast_batch(models, datasets, **opt_params):
-    """``scfgp_tpu.models.model.fit_fast_batch``: not ported yet."""
-    raise _not_ported("fit_fast_batch", "item 5 (batched sweeps)")
+    """Train B same-shape models as one batched fused loop
+    (``scfgp_tpu/models/model.py:180-323``).
+
+    ``models``: SCFGP instances sharing (S, M, extra_basis, dtype, device);
+    ``datasets``: the matching ``(X, y)`` or ``(X, y, Xv, yv)`` tuples of
+    identical shapes (the reference's sweep shape: a fresh random split a
+    trial, ``reference: experiments/boston_housing/boston_housing.py:80``).
+
+    Host work (scaler fits, param init) stays per model; the training loop
+    runs B early-stopped trajectories at once, every step one loss and
+    gradient over a leading trial axis (``fused_optimize_batch``).  Trial b
+    draws what ``fit_fast`` of model b draws (its params, then its
+    annealing generator's seed, from its own ``_rng``), so it replays that
+    fit up to the rounding of batched products; trials are batched, never
+    coupled.  The objective is the training cost, or the validation metric
+    ``obj`` when the tuples carry ``Xv, yv``.  Each model gets its params,
+    posterior and metrics; ``TIME(s)`` is the batch's wall time split
+    evenly, an estimate.  Returns the models.
+
+    ``mesh=`` raises ``NotImplementedError``: trial parallelism over
+    several cards is ROADMAP.md Queue 1 item 8."""
+    if len(models) != len(datasets):
+        raise ValueError("models and datasets must have equal length")
+    if opt_params.pop("mesh", None) is not None:
+        raise _not_ported("fit_fast_batch(mesh=...)", "item 8 (parallel)")
+    if not models:
+        return models
+    has_val = len(datasets[0]) == 4
+    for m, d in zip(models, datasets):
+        m.set_data(d[0], d[1])
+
+    def shape(m, d):
+        return (m.S, m.M, m.N, m.D, m.extra_basis, m.dtype, m.device,
+                len(d), np.shape(d[2]) if len(d) == 4 else None)
+    cfg = shape(models[0], datasets[0])
+    if any(shape(m, d) != cfg for m, d in zip(models, datasets)):
+        raise ValueError(
+            "fit_fast_batch requires identical (S, M, N, D, extra_basis, "
+            "dtype, device) and validation shapes across models; got a "
+            "mismatch")
+    m0 = models[0]
+    obj = opt_params.get("obj", "COST").upper()
+    obj = obj if obj in m0.evals else "COST"
+    algo = opt_params.get("algo") or dict(DEFAULT_OPT)
+    if not isinstance(algo, dict) or algo.get("algo") is None:
+        algo = dict(DEFAULT_OPT)
+    for m in models:
+        for metric in m.evals:
+            m.evals[metric][1] = []
+    # The draw of optimize_fused, model by model: batched == sequential.
+    generators = []
+    for m in models:
+        gen = torch.Generator(device=m.device)
+        gen.manual_seed(m._rng.randint(0, 2**31 - 1))
+        generators.append(gen)
+    params = SCFGPParams(*[torch.stack(leaves)
+                           for leaves in zip(*[m.params for m in models])])
+    X = torch.stack([_trainable(m.X) for m in models])
+    y = torch.stack([_trainable(m.y) for m in models])
+    basis = m0.extra_basis
+
+    def value_and_grad(q):
+        (cost, aux), grads = loss_and_grad(q, X, y, basis_fn=basis)
+        return (cost, aux.post), grads
+
+    def eval_fn(q):
+        with torch.no_grad():
+            cost, aux = loss_fn(q, X, y, basis_fn=basis)
+        return cost, aux.post
+
+    obj_fn = None
+    if has_val and obj != "COST":
+        obj_fn = _batched_validation_objective(models, datasets, obj)
+    tx = make_optimizer(algo["algo"], algo.get("algo_params"))
+    t0 = time.time()
+    res = fused_optimize_batch(
+        value_and_grad, tx, params, generators,
+        max_iter=opt_params.get("max_iter", 500),
+        cvrg_tol=opt_params.get("cvrg_tol", 1e-4),
+        max_cvrg=opt_params.get("max_cvrg", 18), obj_fn=obj_fn,
+        eval_fn=eval_fn)
+    if m0.device.type == "cuda":
+        torch.cuda.synchronize(m0.device)
+    wall = time.time() - t0
+    costs = res.cost_history.cpu().numpy()
+    for i, (m, d) in enumerate(zip(models, datasets)):
+        m.params = SCFGPParams(*[t[i].clone() for t in res.params])
+        m.post = Posterior(*[t[i].clone() for t in res.post])
+        m._stats = None
+        m._ensemble = None
+        n = res.num_iters[i]
+        m.evals["COST"][1] = costs[i, :n].tolist()
+        # An estimate: the B trials ran as one loop, so the batch's wall
+        # time is split evenly (and linearly across iterations).
+        m.evals["TIME(s)"][1] = list(
+            np.linspace(wall / max(n, 1), wall, max(n, 1)) / len(models))
+        if has_val:
+            m._predict_scaled_and_log(m._scale_X(d[2]),
+                                      np.asarray(d[3]).reshape(-1, 1))
+        m.min_obj_ind = -1
+    return models
+
+
+def _metric(obj, mu_y, std_y, ys):
+    """The validation metric ``obj`` of predictions in original units
+    (``SCFGP.py:278-294``), over the last axis: one value a trial."""
+    err = mu_y - ys
+    if obj in ("MAE", "NMAE"):
+        mae = torch.mean(torch.abs(err), dim=-1)
+        return mae if obj == "MAE" else mae / torch.std(ys, dim=-1,
+                                                        correction=0)
+    mse = torch.mean(err * err, dim=-1)
+    var_ys = torch.var(ys, dim=-1, correction=0)
+    if obj in ("MSE", "NMSE", "RMSE"):
+        return {"MSE": mse, "NMSE": mse / var_ys,
+                "RMSE": torch.sqrt(mse)}[obj]
+    mnlp = 0.5 * torch.mean(((ys - mu_y) / std_y) ** 2
+                            + torch.log(2 * math.pi * std_y * std_y), dim=-1)
+    if obj == "MNLP":
+        return mnlp
+    return (mse / var_ys) / (1 + torch.exp(-mnlp))  # SCORE
+
+
+def _batched_validation_objective(models, datasets, obj):
+    """``SCFGP._validation_objective`` for the trials of ``fit_fast_batch``:
+    validation rows (B, Nv, D) scaled by each model's X-scaler, and the
+    y-scalers' states stacked a trial (``scfgp_tpu/models/model.py:262-
+    278``), so each trial is un-scaled by its own scaler."""
+    m0 = models[0]
+    Xv_t = torch.stack([m._scale_X(d[2]) for m, d in zip(models, datasets)])
+    ys = torch.stack([m._tensor(np.asarray(d[3]).reshape(-1))
+                      for m, d in zip(models, datasets)])
+    # Each state is one value a column of y: stacked, one a trial, (B,),
+    # so that it broadcasts over (Nv, B), a trial a column.
+    y_state = {k: torch.stack([m.y_scaler.state[k].to(m0.dtype)
+                               for m in models]).squeeze(-1)
+               for k in m0.y_scaler.state}
+    y_algo, y_compat = m0.y_scaler.algo, m0.y_scaler.compat_reference
+    basis = m0.extra_basis
+
+    def bk(a):
+        return backward_transform_stateless(y_algo, y_state, a.mT,
+                                            y_compat).mT
+
+    def obj_fn(params, post, cost):
+        with torch.no_grad():
+            mu_f, std_f = predict_f(params, post, Xv_t, basis_fn=basis)
+        mu_y = bk(mu_f)
+        std_y = 0.5 * (bk(mu_f + std_f) - bk(mu_f - std_f))
+        return _metric(obj, mu_y, std_y, ys)
+    return obj_fn
 
 
 def _resolve_device(device) -> torch.device:
@@ -482,8 +640,6 @@ class SCFGP:
         y_state = {k: v.to(self.dtype) for k, v in self.y_scaler.state.items()}
         y_algo, y_compat = self.y_scaler.algo, self.y_scaler.compat_reference
         basis = self.extra_basis
-        std_ys = torch.std(ys, correction=0)
-        var_ys = torch.var(ys, correction=0)
 
         def bk(a):
             return backward_transform_stateless(
@@ -494,19 +650,7 @@ class SCFGP:
                 mu_f, std_f = predict_f(params, post, Xv_t, basis_fn=basis)
             mu_y = bk(mu_f)
             std_y = 0.5 * (bk(mu_f + std_f) - bk(mu_f - std_f))
-            err = mu_y - ys
-            if obj in ("MAE", "NMAE"):
-                mae = torch.mean(torch.abs(err))
-                return mae if obj == "MAE" else mae / std_ys
-            mse = torch.mean(err * err)
-            if obj in ("MSE", "NMSE", "RMSE"):
-                return {"MSE": mse, "NMSE": mse / var_ys,
-                        "RMSE": torch.sqrt(mse)}[obj]
-            mnlp = 0.5 * torch.mean(((ys - mu_y) / std_y) ** 2
-                                    + torch.log(2 * math.pi * std_y * std_y))
-            if obj == "MNLP":
-                return mnlp
-            return (mse / var_ys) / (1 + torch.exp(-mnlp))  # SCORE
+            return _metric(obj, mu_y, std_y, ys)
         return obj_fn
 
     def optimize_fused(self, Xv=None, yv=None, **args):
@@ -642,9 +786,55 @@ class SCFGP:
         self.optimize_fused(Xv, yv, **opt_params)
         return self
 
-    def fit_ensemble(self, *args, **kwargs):
-        """``scfgp_tpu`` ``SCFGP.fit_ensemble``: not ported yet."""
-        raise _not_ported("fit_ensemble", "item 5 (ensembles)")
+    def fit_ensemble(self, X, y, Xv=None, yv=None, k: int = 5,
+                     mix_best: Optional[int] = None, **opt_params):
+        """Deep-ensemble fit (``scfgp_tpu/models/model.py:968-1036``): k
+        independent restarts trained as one batched fused loop
+        (``fit_fast_batch``), predictions mixed as an equal-weight GP
+        mixture (law of total variance over members).  ``mix_best=j``
+        mixes only the j best members by the final validation objective,
+        the selection rule of the reference's best-model tournament
+        (``reference: boston_housing.py:90-102``).
+
+        After this call ``predict`` returns the mixture, and ``params`` /
+        ``post`` hold the best single member."""
+        members = [SCFGP(sparsity=self.S, nfeats=self.M,
+                         X_scaling_method=self.X_scaler.algo,
+                         y_scaling_method=self.y_scaler.algo,
+                         seed=self._rng.randint(0, 2**31 - 1),
+                         dtype=self.dtype, extra_basis=self.extra_basis,
+                         device=self.device)
+                   for _ in range(int(k))]
+        has_val = Xv is not None and yv is not None
+        data = [(X, y, Xv, yv) if has_val else (X, y)] * len(members)
+        fit_fast_batch(members, data, **opt_params)
+
+        # Members share scaler state (fitted on the same X, y): adopt it.
+        m0 = members[0]
+        self.X_scaler, self.y_scaler = m0.X_scaler, m0.y_scaler
+        self.X, self.y = m0.X, m0.y
+        self.N, self.D, self.S = m0.N, m0.D, m0.S
+        obj = opt_params.get("obj", "COST").upper()
+        obj = obj if obj in self.evals and has_val else "COST"
+
+        def final_obj(m):
+            series = m.evals[obj][1]
+            return series[-1] if series else np.inf
+
+        if mix_best is not None and has_val:
+            members = sorted(members, key=final_obj)[:max(1, int(mix_best))]
+        best = min(members, key=final_obj)
+        self.params, self.post = best.params, best.post
+        self._stats = None
+        self._ensemble = [(m.params, m.post) for m in members]
+        for metric in self.evals:
+            self.evals[metric][1] = (list(best.evals[metric][1])
+                                     if metric in ("COST", "TIME(s)") else [])
+        if has_val:  # metrics of the mixture
+            self._predict_scaled_and_log(self._scale_X(Xv),
+                                         np.asarray(yv).reshape(-1, 1))
+        self.min_obj_ind = -1
+        return self
 
     def fit_bayes(self, *args, **kwargs):
         """``scfgp_tpu`` ``SCFGP.fit_bayes``: not ported yet."""

@@ -20,6 +20,14 @@ has_aux=True)``.  The reference quirks stay: the feature scale uses M, not S+M
 (``SCFGP.py:125-126``).  The JAX package's TPU matrix-unit levers
 (``mm_dtype``, ``mm_precision``) and its ``axis_name`` all-reduce are not
 part of this module.
+
+Trials: every function here also takes params, X and y (and a posterior)
+with a leading trial axis B, the trials of a batched sweep
+(``models/model.py::fit_fast_batch``; ``jax.vmap`` over ``loss_fn`` in the
+JAX package).  Sums run per trial and a batched loss returns cost (B,);
+trials share nothing, so the gradient of ``cost.sum()`` is each trial's
+own gradient.  Scalars of a trial broadcast over its rows through
+``_trial``, never against the row axis.
 """
 
 from __future__ import annotations
@@ -69,6 +77,19 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _trial(t: torch.Tensor, dims: int = 1) -> torch.Tensor:
+    """A per-trial value, () or (B,), with ``dims`` trailing axes of size 1
+    so that it broadcasts over one trial's rows (or matrix)."""
+    return t.reshape(t.shape + (1,) * dims)
+
+
+def _mv(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``A @ v`` for a matrix and a vector, per trial with a trial axis."""
+    if v.dim() == 1:
+        return A @ v
+    return (A @ v.unsqueeze(-1)).squeeze(-1)
+
+
 def fourier_features(p: SCFGPParams, X: torch.Tensor) -> torch.Tensor:
     """Feature map Phi (N, 2(S+M)) (``SCFGP.py:99-102``): one fused
     projection ``X @ [l_F | F]`` with mean-centred phases and scale
@@ -80,17 +101,20 @@ def fourier_features(p: SCFGPParams, X: torch.Tensor) -> torch.Tensor:
 def sufficient_stats(Phi: torch.Tensor, y: torch.Tensor,
                      w: Optional[torch.Tensor] = None) -> SufficientStats:
     """Accumulate the row-sum statistics, optionally weighted so that
-    zero-weight padding rows change nothing."""
-    y = y.reshape(-1)
+    zero-weight padding rows change nothing; per trial for Phi (B, N, 2K)
+    and y (B, N)."""
+    y = y.reshape(Phi.shape[:-1])
     if w is None:
         return SufficientStats(
-            phiTphi=Phi.T @ Phi, phiTy=Phi.T @ y, yTy=torch.sum(y * y),
-            n=torch.full((), Phi.shape[0], dtype=Phi.dtype,
+            phiTphi=Phi.mT @ Phi, phiTy=_mv(Phi.mT, y),
+            yTy=torch.sum(y * y, dim=-1),
+            n=torch.full(Phi.shape[:-2], Phi.shape[-2], dtype=Phi.dtype,
                          device=Phi.device))
-    w = w.reshape(-1).to(Phi.dtype)
-    return SufficientStats(phiTphi=Phi.T @ (Phi * w[:, None]),
-                           phiTy=Phi.T @ (w * y), yTy=torch.sum(w * y * y),
-                           n=torch.sum(w))
+    w = w.reshape(Phi.shape[:-1]).to(Phi.dtype)
+    return SufficientStats(phiTphi=Phi.mT @ (Phi * w.unsqueeze(-1)),
+                           phiTy=_mv(Phi.mT, w * y),
+                           yTy=torch.sum(w * y * y, dim=-1),
+                           n=torch.sum(w, dim=-1))
 
 
 class _CholInverse(torch.autograd.Function):
@@ -120,29 +144,32 @@ def chol_and_inverse(A: torch.Tensor):
 
 def solve_posterior(stats: SufficientStats, sig2_n: torch.Tensor,
                     epsilon: float = EPSILON) -> Posterior:
-    """Cholesky-solve the 2K x 2K normal equations (``SCFGP.py:105-110``)."""
-    n2k = stats.phiTphi.shape[0]
+    """Cholesky-solve the 2K x 2K normal equations (``SCFGP.py:105-110``),
+    per trial with a trial axis."""
+    n2k = stats.phiTphi.shape[-1]
     eye = torch.eye(n2k, dtype=stats.phiTphi.dtype,
                     device=stats.phiTphi.device)
-    L, Li = chol_and_inverse(stats.phiTphi + (sig2_n + epsilon) * eye)
-    beta = Li @ stats.phiTy
-    alpha = Li.T @ beta
+    L, Li = chol_and_inverse(stats.phiTphi
+                             + _trial(sig2_n + epsilon, 2) * eye)
+    beta = _mv(Li, stats.phiTy)
+    alpha = _mv(Li.mT, beta)
     return Posterior(L=L, Li=Li, alpha=alpha, beta=beta,
-                     log_diag_L=torch.log(torch.diagonal(L)))
+                     log_diag_L=torch.log(torch.diagonal(L, dim1=-2,
+                                                         dim2=-1)))
 
 
 def latent_moments(Phi: torch.Tensor, post: Posterior):
     """Per-row posterior mean and variance of the latent f
     (``SCFGP.py:111-112``): ``var_f = rowsum((Phi Liᵀ)²)``."""
-    PhiLiT = Phi @ post.Li.T
-    return Phi @ post.alpha, torch.sum(PhiLiT * PhiLiT, dim=1)
+    PhiLiT = Phi @ post.Li.mT
+    return _mv(Phi, post.alpha), torch.sum(PhiLiT * PhiLiT, dim=-1)
 
 
 def expected_nll_rows(mu_f, var_f, y, noise):
     """Closed form of the reference's Gauss-Hermite expected NLL
-    (``SCFGP.py:113,118-124``), per row."""
-    y = y.reshape(-1)
-    dsp = noise * (var_f + 1.0)
+    (``SCFGP.py:113,118-124``), per row; ``noise`` () or (B,) a trial."""
+    y = y.reshape(mu_f.shape)
+    dsp = _trial(noise) * (var_f + 1.0)
     r = mu_f - y
     return (0.5 * r * r + 0.5 * var_f) / dsp + 0.5 * torch.log(
         2.0 * math.pi * dsp)
@@ -151,32 +178,35 @@ def expected_nll_rows(mu_f, var_f, y, noise):
 def kl_penalty(p: SCFGPParams) -> torch.Tensor:
     """KL-style regulariser on the frequency matrices
     (``SCFGP.py:94,114-117,127``); std is the population std, as in NumPy."""
-    F = p.l_F @ p.r_F.T
+    F = p.l_F @ p.r_F.mT
 
     def kl(mu, sig):
         return sig + mu * mu - torch.log(sig)
 
-    mu_l = torch.sum(p.l_F.mean(dim=1))
-    sig_l = torch.sum(p.l_F.std(dim=1, correction=0))
-    mu_w = torch.sum(F.mean(dim=1))
-    sig_w = torch.sum(F.std(dim=1, correction=0))
+    mu_l = torch.sum(p.l_F.mean(dim=-1), dim=-1)
+    sig_l = torch.sum(p.l_F.std(dim=-1, correction=0), dim=-1)
+    mu_w = torch.sum(F.mean(dim=-1), dim=-1)
+    sig_w = torch.sum(F.std(dim=-1, correction=0), dim=-1)
     return (kl(mu_w, sig_w) * p.M + kl(mu_l, sig_l) * p.S) / (p.S + p.M)
 
 
 def feature_block(p: SCFGPParams, X: torch.Tensor,
                   basis_fn=None) -> torch.Tensor:
     """Phi of ``X``, with the FIXED columns ``basis_fn(X)`` appended for
-    composite models (e.g. trend + periodic)."""
+    composite models (e.g. trend + periodic).  ``basis_fn`` takes one
+    (N, D) array; with a trial axis it is applied per trial and stacked."""
     Phi = fourier_features(p, X)
     if basis_fn is None:
         return Phi
-    return torch.cat([Phi, basis_fn(X).to(Phi.dtype)], dim=1)
+    basis = (basis_fn(X) if X.dim() == 2
+             else torch.stack([basis_fn(x) for x in X]))
+    return torch.cat([Phi, basis.to(Phi.dtype)], dim=-1)
 
 
 def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
                   w: Optional[torch.Tensor] = None):
     """``loss_fn`` given the feature block ``Phi`` of the training rows."""
-    y = y.reshape(-1)
+    y = y.reshape(Phi.shape[:-1])
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
     stats = sufficient_stats(Phi, y, w)
@@ -184,10 +214,10 @@ def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
     mu_f, var_f = latent_moments(Phi, post)
     enll_rows = expected_nll_rows(mu_f, var_f, y, noise)
     if w is not None:
-        enll_rows = enll_rows * w.reshape(-1).to(enll_rows.dtype)
-    nlml = (2.0 * torch.sum(post.log_diag_L)
-            + 2.0 * torch.sum(enll_rows)
-            + (stats.yTy - torch.sum(post.beta * post.beta)) / sig2_n
+        enll_rows = enll_rows * w.reshape(y.shape).to(enll_rows.dtype)
+    nlml = (2.0 * torch.sum(post.log_diag_L, dim=-1)
+            + 2.0 * torch.sum(enll_rows, dim=-1)
+            + (stats.yTy - torch.sum(post.beta * post.beta, dim=-1)) / sig2_n
             + 2.0 * (stats.n - p.M) * p.a)
     penalty = kl_penalty(p)
     cost = (nlml + penalty) / stats.n
@@ -204,9 +234,10 @@ def loss_fn(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
 def predict_from_phi(p: SCFGPParams, post: Posterior, Phis: torch.Tensor):
     """``predict_f`` given the feature block ``Phis`` of the query rows."""
     noise = softplus(p.c)
-    PhiLiT = Phis @ post.Li.T
-    std = torch.sqrt(noise * (1.0 + torch.sum(PhiLiT * PhiLiT, dim=1)))
-    return Phis @ post.alpha, std
+    PhiLiT = Phis @ post.Li.mT
+    std = torch.sqrt(_trial(noise)
+                     * (1.0 + torch.sum(PhiLiT * PhiLiT, dim=-1)))
+    return _mv(Phis, post.alpha), std
 
 
 def predict_f(p: SCFGPParams, post: Posterior, Xs: torch.Tensor,
@@ -228,11 +259,13 @@ def value_and_grad(loss, p: SCFGPParams, *args, **kwargs):
     ``grads`` an ``SCFGPParams`` of d cost / d p:
     ``jax.value_and_grad(loss, has_aux=True)``.  The gradient is taken by
     ``torch.autograd.grad`` on leaf copies of the params, so nothing
-    accumulates in ``.grad``; every output is detached."""
+    accumulates in ``.grad``; every output is detached.  A batched cost
+    (B,) is differentiated through its sum: each trial's gradient is its
+    own, since trials share nothing."""
     leaves = SCFGPParams(*map(_leaf, p))
     with torch.enable_grad():
         cost, aux = loss(leaves, *args, **kwargs)
-        grads = torch.autograd.grad(cost, leaves)
+        grads = torch.autograd.grad(cost.sum(), leaves)
     aux = LossAux(post=Posterior(*(t.detach() for t in aux.post)),
                   nlml=aux.nlml.detach(), penalty=aux.penalty.detach())
     return (cost.detach(), aux), SCFGPParams(*grads)

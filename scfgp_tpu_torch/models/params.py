@@ -29,7 +29,9 @@ class SCFGPParams(NamedTuple):
     Shapes: ``l_F (D, S)``, ``r_F (M, S)``, ``l_phase (S,)``, ``phase (M,)``,
     scalars ``a`` (noise: sig2_n = exp(2a)), ``b`` (amplitude: sig_f = exp(b)),
     ``c`` (dispersion: noise = softplus(c)).  Field order is the checkpoint's
-    (``scfgp_tpu/utils/checkpoint.py:34-44``).
+    (``scfgp_tpu/utils/checkpoint.py:34-44``).  The trials of a batched fit
+    stack every leaf on a leading axis B (``a`` (B,), ``l_F`` (B, D, S),
+    ...); D, S and M read the trailing axes.
     """
 
     a: torch.Tensor
@@ -42,15 +44,15 @@ class SCFGPParams(NamedTuple):
 
     @property
     def D(self) -> int:
-        return self.l_F.shape[0]
+        return self.l_F.shape[-2]
 
     @property
     def S(self) -> int:
-        return self.l_F.shape[1]
+        return self.l_F.shape[-1]
 
     @property
     def M(self) -> int:
-        return self.r_F.shape[0]
+        return self.r_F.shape[-2]
 
 
 def resolve_sparsity(S: int, D: int, M: int) -> int:
@@ -167,8 +169,9 @@ def feature_scale(p: SCFGPParams) -> torch.Tensor:
 
 
 def derive_frequencies(p: SCFGPParams) -> DerivedFrequencies:
-    F = p.l_F @ p.r_F.T
-    l_FC = p.l_phase - p.l_F.mean(dim=0)
-    FC = p.phase - F.mean(dim=0)
-    return DerivedFrequencies(F=F, Fcat=torch.cat([p.l_F, F], dim=1),
-                              pcat=torch.cat([l_FC, FC]))
+    """Per trial when the leaves carry a leading trial axis."""
+    F = p.l_F @ p.r_F.mT
+    l_FC = p.l_phase - p.l_F.mean(dim=-2)
+    FC = p.phase - F.mean(dim=-2)
+    return DerivedFrequencies(F=F, Fcat=torch.cat([p.l_F, F], dim=-1),
+                              pcat=torch.cat([l_FC, FC], dim=-1))

@@ -57,16 +57,19 @@ _SIGNATURES = {"scfgp_chol_f32": ([_VOID] * 3 + [_INT, _VOID], ctypes.c_int),
 def cholesky_ref(A: torch.Tensor) -> torch.Tensor:
     """Plain lower Cholesky factor; NaN in the lower triangle where ``A``
     is not positive definite.  ``cholesky_ex`` neither raises nor
-    synchronises with the host."""
+    synchronises with the host.  A stack of matrices (B, n, n) is factored
+    matrix by matrix."""
     L, info = torch.linalg.cholesky_ex(A)
-    return torch.where(info == 0, L, torch.tril(torch.full_like(L, math.nan)))
+    return torch.where((info == 0)[..., None, None], L,
+                       torch.tril(torch.full_like(L, math.nan)))
 
 
 def cholesky_inverse_ref(A: torch.Tensor):
     """Plain ``(L, L⁻¹)``: the factor, then a triangular solve against the
-    identity (``scfgp_tpu/ops/cholesky.py:330-334``)."""
+    identity (``scfgp_tpu/ops/cholesky.py:330-334``); per matrix of a
+    stack."""
     L = cholesky_ref(A)
-    eye = torch.eye(L.shape[0], dtype=L.dtype, device=L.device)
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device)
     return L, torch.linalg.solve_triangular(L, eye, upper=False)
 
 
@@ -100,8 +103,9 @@ def tri_inverse_blocked(L: torch.Tensor, block: int = 256) -> torch.Tensor:
 
 
 def _phi(S: torch.Tensor) -> torch.Tensor:
-    """``Φ(S) = tril(S) - diag(S)/2``."""
-    return torch.tril(S) - 0.5 * torch.diag(torch.diagonal(S))
+    """``Φ(S) = tril(S) - diag(S)/2``, per matrix of a stack."""
+    return torch.tril(S) - 0.5 * torch.diag_embed(
+        torch.diagonal(S, dim1=-2, dim2=-1))
 
 
 def chol_bwd(L: torch.Tensor, gL: torch.Tensor) -> torch.Tensor:
@@ -118,10 +122,12 @@ def chol_inverse_bwd(L: torch.Tensor, Li: torch.Tensor, gL: torch.Tensor,
     against ``Li`` (``scfgp_tpu/models/objective.py:199-243``):
 
         gL_tot = gL - Liᵀ gLi Liᵀ
-        Ā      = Liᵀ Φ(Lᵀ gL_tot) Li, symmetrised."""
-    gL_tot = gL - Li.T @ gLi @ Li.T  # an unused output's grad is zeros
-    Abar = Li.T @ _phi(L.T @ gL_tot) @ Li
-    return 0.5 * (Abar + Abar.T)
+        Ā      = Liᵀ Φ(Lᵀ gL_tot) Li, symmetrised;
+
+    per matrix of a stack."""
+    gL_tot = gL - Li.mT @ gLi @ Li.mT  # an unused output's grad is zeros
+    Abar = Li.mT @ _phi(L.mT @ gL_tot) @ Li
+    return 0.5 * (Abar + Abar.mT)
 
 
 def _check(where, A):

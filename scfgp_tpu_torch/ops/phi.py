@@ -20,6 +20,13 @@ Two versions of each direction:
   * ``fourier_features_ref`` and ``phi_bwd_ref`` are the plain PyTorch
     versions: the CPU path and the kernels' references on the card.
 
+Every version takes the 2-D shapes, X (N, D), Fcat (D, K), pcat (K,) and
+one scale, or the same with a leading trial axis B (scale (B,)): the
+trials of a batched sweep (``models/model.py::fit_fast_batch``), what
+``jax.vmap`` hands the Pallas kernel as a leading grid axis.  The kernels
+do each direction for all B trials in one launch, and trial b gets
+bitwise the bits of the 2-D call on trial b.
+
 ``FourierFeatures`` joins the two directions into one
 ``torch.autograd.Function`` (the JAX package's ``custom_vjp``,
 ``scfgp_tpu/ops/phi.py:168-187``): it saves X, Fcat, pcat and s, not Phi,
@@ -38,38 +45,49 @@ import torch
 from .build import load_library, raise_on
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
+# The int arguments are (trials, n, d, k).
 _SIGNATURES = {
-    "phi_fwd": {"scfgp_phi_fwd_f32": ([_VOID] * 5 + [_INT] * 3 + [_VOID],
+    "phi_fwd": {"scfgp_phi_fwd_f32": ([_VOID] * 5 + [_INT] * 4 + [_VOID],
                                       ctypes.c_int)},
-    "phi_bwd": {"scfgp_phi_bwd_f32": ([_VOID] * 7 + [_INT] * 3 + [_VOID],
+    "phi_bwd": {"scfgp_phi_bwd_f32": ([_VOID] * 7 + [_INT] * 4 + [_VOID],
                                       ctypes.c_int),
-                "scfgp_phi_bwd_workspace": ([_INT] * 3, ctypes.c_size_t)},
+                "scfgp_phi_bwd_workspace": ([_INT] * 4, ctypes.c_size_t)},
 }
+# The CUDA grid's last axis carries the trial.
+MAX_TRIALS = 65535
 
 
 def _library(name: str) -> ctypes.CDLL:
     return load_library(name, _SIGNATURES[name])
 
 
+def _per_trial(scale: torch.Tensor) -> torch.Tensor:
+    """``scale`` () or (B,) as (1, 1) or (B, 1, 1), to broadcast over a
+    trial's (N, 2K) block."""
+    return scale.reshape(scale.shape + (1, 1))
+
+
 def fourier_features_ref(X: torch.Tensor, Fcat: torch.Tensor,
                          pcat: torch.Tensor,
                          scale: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch feature map (N, 2K)."""
-    T = X @ Fcat + pcat
-    return scale * torch.cat([torch.cos(T), torch.sin(T)], dim=1)
+    """Plain PyTorch feature map (N, 2K); with a leading trial axis, X
+    (B, N, D), Fcat (B, D, K), pcat (B, K) and scale (B,) give (B, N, 2K)."""
+    T = X @ Fcat + pcat.unsqueeze(-2)
+    return _per_trial(scale) * torch.cat([torch.cos(T), torch.sin(T)], dim=-1)
 
 
 def phi_bwd_ref(X: torch.Tensor, Fcat: torch.Tensor, pcat: torch.Tensor,
                 scale: torch.Tensor, g: torch.Tensor):
     """Plain PyTorch backward of the feature map: ``(dFcat, dpcat, ds)``
     from the cotangent ``g`` (N, 2K), the formulas of
-    ``scfgp_tpu/ops/phi.py:83-95``."""
-    k = Fcat.shape[1]
-    T = X @ Fcat + pcat
+    ``scfgp_tpu/ops/phi.py:83-95``; per trial with a leading trial axis."""
+    k = Fcat.shape[-1]
+    T = X @ Fcat + pcat.unsqueeze(-2)
     c, sn = torch.cos(T), torch.sin(T)
-    g_cos, g_sin = g[:, :k], g[:, k:]
-    dT = scale * (g_sin * c - g_cos * sn)
-    return X.T @ dT, dT.sum(dim=0), torch.sum(g_cos * c + g_sin * sn)
+    g_cos, g_sin = g[..., :k], g[..., k:]
+    dT = _per_trial(scale) * (g_sin * c - g_cos * sn)
+    return (X.mT @ dT, dT.sum(dim=-2),
+            (g_cos * c + g_sin * sn).sum(dim=(-2, -1)))
 
 
 def check_kernel_inputs(where, X, **tensors):
@@ -87,24 +105,40 @@ def check_kernel_inputs(where, X, **tensors):
 
 
 def _check(where, X, Fcat, pcat, scale, g=None):
+    """Refuse what K1f and K1b do not take.  Two ranks: X (N, D), Fcat
+    (D, K), pcat (K,) and one scale, or the same with a leading trial axis
+    B on each and scale (B,); mixed ranks are refused.  Returns (B, N, D,
+    K), B = 1 for the 2-D call."""
     tensors = {"Fcat": Fcat, "pcat": pcat, "scale": scale}
     if g is not None:
         tensors["g"] = g
     check_kernel_inputs(where, X, **tensors)
-    if X.dim() != 2 or Fcat.dim() != 2 or pcat.dim() != 1:
+    if (X.dim() not in (2, 3) or Fcat.dim() != X.dim()
+            or pcat.dim() != X.dim() - 1):
         raise ValueError(f"{where}: expected X (N, D), Fcat (D, K), pcat "
-                         f"(K,); got {tuple(X.shape)}, {tuple(Fcat.shape)}, "
+                         "(K,), or X (B, N, D), Fcat (B, D, K), pcat (B, K); "
+                         f"got {tuple(X.shape)}, {tuple(Fcat.shape)}, "
                          f"{tuple(pcat.shape)}")
-    if Fcat.shape[0] != X.shape[1] or pcat.shape[0] != Fcat.shape[1]:
+    lead = X.shape[:-2]
+    if (Fcat.shape[:-2] != lead or pcat.shape[:-1] != lead
+            or Fcat.shape[-2] != X.shape[-1]
+            or pcat.shape[-1] != Fcat.shape[-1]):
         raise ValueError(f"{where}: shapes disagree: X {tuple(X.shape)}, "
                          f"Fcat {tuple(Fcat.shape)}, pcat {tuple(pcat.shape)}")
-    if g is not None and tuple(g.shape) != (X.shape[0], 2 * Fcat.shape[1]):
-        raise ValueError(f"{where}: g is {tuple(g.shape)}, expected "
-                         f"{(X.shape[0], 2 * Fcat.shape[1])}")
-    if scale.numel() != 1:
+    want_g = (*X.shape[:-1], 2 * Fcat.shape[-1])
+    if g is not None and tuple(g.shape) != want_g:
+        raise ValueError(f"{where}: g is {tuple(g.shape)}, expected {want_g}")
+    if lead and tuple(scale.shape) != tuple(lead):
+        raise ValueError(f"{where}: scale is {tuple(scale.shape)}, expected "
+                         f"one value a trial, {tuple(lead)}")
+    if not lead and scale.numel() != 1:
         raise ValueError(f"{where}: scale must hold one value")
-    if max(X.shape[0], X.shape[1], 2 * Fcat.shape[1]) >= 2 ** 31:
+    trials = lead[0] if lead else 1
+    if trials > MAX_TRIALS:
+        raise ValueError(f"{where}: {trials} trials exceed {MAX_TRIALS}")
+    if max(X.shape[-2], X.shape[-1], 2 * Fcat.shape[-1]) >= 2 ** 31:
         raise ValueError(f"{where}: a dimension exceeds int32")
+    return trials, X.shape[-2], X.shape[-1], Fcat.shape[-1]
 
 
 def refuse_grad(where, *tensors, through="FourierFeatures"):
@@ -114,53 +148,57 @@ def refuse_grad(where, *tensors, through="FourierFeatures"):
 
 
 def _phi_fwd(X, Fcat, pcat, scale):
-    _check("fourier_features_cuda", X, Fcat, pcat, scale)
-    n, d = X.shape
-    k = Fcat.shape[1]
-    out = torch.empty((n, 2 * k), dtype=torch.float32, device=X.device)
-    if n == 0 or k == 0:
+    trials, n, d, k = _check("fourier_features_cuda", X, Fcat, pcat, scale)
+    out = torch.empty((*X.shape[:-1], 2 * k), dtype=torch.float32,
+                      device=X.device)
+    if out.numel() == 0:
         return out
     lib = _library("phi_fwd")
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = lib.scfgp_phi_fwd_f32(X.data_ptr(), Fcat.data_ptr(),
                                    pcat.data_ptr(), scale.data_ptr(),
-                                   out.data_ptr(), n, d, k, stream)
+                                   out.data_ptr(), trials, n, d, k, stream)
     raise_on(lib, rc, "phi_fwd")
     fourier_features_cuda.launches += 1
     return out
 
 
 def _phi_bwd(X, Fcat, pcat, scale, g):
-    _check("fourier_features_bwd_cuda", X, Fcat, pcat, scale, g)
-    n, d = X.shape
-    k = Fcat.shape[1]
-    launch = n > 0 and k > 0
+    trials, n, d, k = _check("fourier_features_bwd_cuda", X, Fcat, pcat,
+                             scale, g)
+    lead = X.shape[:-2]
+    width = d * k + k + 1
+    launch = trials > 0 and n > 0 and k > 0
     out = (torch.empty if launch else torch.zeros)(
-        d * k + k + 1, dtype=torch.float32, device=X.device)
+        (*lead, width), dtype=torch.float32, device=X.device)
     if launch:
         lib = _library("phi_bwd")
-        part = torch.empty(lib.scfgp_phi_bwd_workspace(n, d, k),
+        part = torch.empty(lib.scfgp_phi_bwd_workspace(trials, n, d, k),
                            dtype=torch.float32, device=X.device)
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream(X.device).cuda_stream
             rc = lib.scfgp_phi_bwd_f32(
                 X.data_ptr(), Fcat.data_ptr(), pcat.data_ptr(),
                 scale.data_ptr(), g.data_ptr(), part.data_ptr(),
-                out.data_ptr(), n, d, k, stream)
+                out.data_ptr(), trials, n, d, k, stream)
         raise_on(lib, rc, "phi_bwd")
         fourier_features_bwd_cuda.launches += 1
-    return out[:d * k].view(d, k), out[d * k:d * k + k], out[d * k + k]
+    return (out[..., :d * k].view(*lead, d, k), out[..., d * k:d * k + k],
+            out[..., d * k + k])
 
 
 def fourier_features_cuda(X: torch.Tensor, Fcat: torch.Tensor,
                           pcat: torch.Tensor,
                           scale: torch.Tensor) -> torch.Tensor:
-    """Feature map (N, 2K) by the CUDA kernel, on PyTorch's current stream.
+    """Feature map (N, 2K) by the CUDA kernel, on PyTorch's current stream;
+    with a leading trial axis (X (B, N, D), Fcat (B, D, K), pcat (B, K),
+    scale (B,)) all B maps in one launch, (B, N, 2K), each trial bitwise
+    the 2-D call on its own inputs.
 
-    ``scale`` is a one-element device tensor, read by the kernel through
-    its pointer (no host synchronisation).  Raises on anything the kernel
-    does not take, on inputs that require grad, and if the launch fails."""
+    ``scale`` is a device tensor, read by the kernel through its pointer
+    (no host synchronisation).  Raises on anything the kernel does not
+    take, on inputs that require grad, and if the launch fails."""
     refuse_grad("fourier_features_cuda", X, Fcat, pcat, scale)
     return _phi_fwd(X, Fcat, pcat, scale)
 
@@ -170,7 +208,9 @@ def fourier_features_bwd_cuda(X: torch.Tensor, Fcat: torch.Tensor,
                               g: torch.Tensor):
     """``(dFcat (D, K), dpcat (K,), ds ())`` by the CUDA kernel from the
     cotangent ``g`` (N, 2K) of the feature map, on PyTorch's current
-    stream; bitwise repeatable.  Raises as ``fourier_features_cuda`` does."""
+    stream; bitwise repeatable.  With a leading trial axis, one call for
+    all B trials: ``(B, D, K), (B, K), (B,)``, each trial bitwise the 2-D
+    call's.  Raises as ``fourier_features_cuda`` does."""
     refuse_grad("fourier_features_bwd_cuda", X, Fcat, pcat, scale, g)
     return _phi_bwd(X, Fcat, pcat, scale, g)
 

@@ -62,6 +62,9 @@ def _zeros_like(params):
 
 
 def _step_counter(params):
+    # One count, whatever the leaves' shapes: the trials of a batched fit
+    # (leaves stacked on a trial axis) share it, since every active trial
+    # has taken every step (opt/fused_loop.py::fused_optimize_batch).
     return torch.zeros((), dtype=torch.float32,
                        device=tree_leaves(params)[0].device)
 

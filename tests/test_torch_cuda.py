@@ -415,3 +415,89 @@ def test_cholesky_inverse_gradient_matches_chol_and_inverse(cuda_device):
     tol, _ = chol_tolerance(A, L, Li)
     assert float((got - ref).abs().max()) <= tol["grad"] * float(
         ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("n,d,k", [(455, 13, 70), (600, 256, 130)])
+def test_batched_kernels_equal_per_trial_calls(cuda_device, B, n, d, k):
+    """K1f and K1b with a trial axis: one launch each for all B trials, and
+    each trial bitwise the 2-D call on its own inputs (D = 13 takes the
+    narrow designs, D = 256 the wide ones)."""
+    rng = np.random.RandomState(B)
+    X, F, p, s, g = (torch.as_tensor(a, dtype=torch.float32,
+                                     device=cuda_device)
+                     for a in (rng.rand(B, n, d), 3.0 * rng.randn(B, d, k),
+                               rng.uniform(0, 2 * np.pi, (B, k)),
+                               rng.uniform(0.5, 1.5, B),
+                               rng.randn(B, n, 2 * k)))
+    before = (fourier_features_cuda.launches,
+              fourier_features_bwd_cuda.launches)
+    Phi = fourier_features_cuda(X, F, p, s)
+    grads = fourier_features_bwd_cuda(X, F, p, s, g)
+    torch.cuda.synchronize()
+    assert (fourier_features_cuda.launches,
+            fourier_features_bwd_cuda.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    assert Phi.shape == (B, n, 2 * k)
+    assert [tuple(t.shape) for t in grads] == [(B, d, k), (B, k), (B,)]
+    for b in range(B):
+        assert torch.equal(Phi[b], fourier_features_cuda(X[b], F[b], p[b],
+                                                         s[b]))
+        one = fourier_features_bwd_cuda(X[b], F[b], p[b], s[b], g[b])
+        for a, c in zip(grads, one):
+            assert torch.equal(a[b], c)
+        assert (float((Phi[b] - fourier_features_ref(X[b], F[b], p[b], s[b]))
+                      .abs().max())
+                <= kernel_tolerance(X[b], F[b], p[b], s[b]))
+
+
+@pytest.mark.cuda
+def test_batched_kernel_wrappers_refuse_mixed_ranks(cuda_device):
+    X, F, p, s = _inputs(64, 4, 9, cuda_device)
+    Xb, Fb, pb = X[None].contiguous(), F[None].contiguous(), p[None]
+    sb = s.reshape(1)
+    with pytest.raises(ValueError, match="expected X"):
+        fourier_features_cuda(Xb, F, p, s)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        fourier_features_cuda(Xb, torch.cat([Fb, Fb]), torch.cat([pb, pb]),
+                              torch.cat([sb, sb]))
+    with pytest.raises(ValueError, match="scale"):
+        fourier_features_cuda(Xb, Fb, pb, s)
+    with pytest.raises(ValueError, match="g is"):
+        fourier_features_bwd_cuda(Xb, Fb, pb, sb,
+                                  torch.zeros(64, 18, device=cuda_device))
+
+
+@pytest.mark.cuda
+def test_fit_fast_batch_on_card_matches_sequential(cuda_device):
+    """Three boston trials: each batched alone equals its fit_fast bitwise;
+    batched together, K1b launches once a step of the batch and the costs
+    agree within chip_smoke.FIT_COST_TOL over the first 10 steps, before
+    stall annealing can act (after it, float32 rounding of the batched
+    products may flip the loop's threshold tests: chip_smoke.py,
+    BATCH_FIT_EXACT_STEPS)."""
+    from scfgp_tpu_torch.data.datasets import load_boston
+    from scfgp_tpu_torch.models.model import fit_fast_batch
+    from chip_smoke import BATCH_FIT_EXACT_STEPS, FIT_COST_TOL
+    data = [load_boston(seed=b)[:4] for b in range(3)]
+    kw = dict(obj="SCORE", max_iter=60, cvrg_tol=1e-5, max_cvrg=18)
+
+    def models():
+        return [SCFGP(sparsity=20, nfeats=30, seed=b, device="cuda")
+                for b in range(3)]
+    seq, alone, bat = models(), models(), models()
+    for ms, ma, d in zip(seq, alone, data):
+        ms.fit_fast(*d, **kw)
+        fit_fast_batch([ma], [d], **kw)
+        assert ma.evals["COST"][1] == ms.evals["COST"][1]
+        assert all(torch.equal(x, y) for x, y in zip(ma.params, ms.params))
+    before = fourier_features_bwd_cuda.launches
+    fit_fast_batch(bat, data, **kw)
+    steps = max(len(m.evals["COST"][1]) for m in bat)
+    assert fourier_features_bwd_cuda.launches - before == steps
+    for ms, mb in zip(seq, bat):
+        a = np.asarray(ms.evals["COST"][1][:BATCH_FIT_EXACT_STEPS])
+        c = np.asarray(mb.evals["COST"][1][:BATCH_FIT_EXACT_STEPS])
+        assert float(np.max(np.abs(a - c) / np.abs(a))) <= FIT_COST_TOL
+        assert np.isfinite(mb.evals["NMSE"][1][-1])

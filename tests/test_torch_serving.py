@@ -105,7 +105,7 @@ def test_metrics_equal_jax():
 
 
 @pytest.mark.parametrize("name", ["load_boston", "load_abalone",
-                                  "load_kin8nm"])
+                                  "load_kin8nm", "load_co2"])
 @pytest.mark.parametrize("real", [False, True])
 def test_loaders_equal_jax(name, real, monkeypatch):
     if real:  # the JAX package's authentic-format fixture files
@@ -217,7 +217,12 @@ def test_import_leaves_jax_out():
             " scfgp_tpu_torch.ops.gram, scfgp_tpu_torch.ops.streaming,"
             " scfgp_tpu_torch.ops.cholesky, scfgp_tpu_torch.utils.profiling,"
             " scfgp_tpu_torch.experiments.chol_crossover,"
-            " scfgp_tpu_torch.experiments.kernel_ab;"
+            " scfgp_tpu_torch.experiments.kernel_ab,"
+            " scfgp_tpu_torch.utils.experiment,"
+            " scfgp_tpu_torch.experiments.boston_housing,"
+            " scfgp_tpu_torch.experiments.abalone,"
+            " scfgp_tpu_torch.experiments.kin8nm,"
+            " scfgp_tpu_torch.experiments.co2;"
             "from scfgp_tpu_torch.ops import loss_fn_streaming;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
