@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, streaming and Cholesky paths
-on one card.
+"""Drive the PyTorch port's serving, training, streaming, Cholesky, sweep and
+Bayes paths on one card.
 
     python3 chip_smoke.py
 
@@ -73,17 +73,31 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ported boston driver's batched sweep at full width (50 trials x m in
    {10..50}); 11d its floor-closing ensembles on seeds 0-2; 11e the co2
    driver (plain and composite) and the abalone and kin8nm drivers with
-   --quick, with the floor pins of tests/test_end_to_end.py.
+   --quick, with the floor pins of tests/test_end_to_end.py;
+12. the Bayes layer at the JAX campaign's kin8nm width (S=20, M=50, D=8,
+   sampling dimension 1163) on the seed-0 split: 12a the chain-batched log
+   posterior and gradient of 32 chains, kernel path against the plain map,
+   one K1f and one K1b launch for all chains, device and wall ms and the
+   busy share; 12b the fleet recipe (32 random-init HMC chains, 300 + 300
+   transitions of 16 steps, per-chain adaptation) through the ported probe
+   experiment, ``predict_bayes`` raw and recalibrated, pinned at NMSE <= 0.034
+   and MNLP <= -1.56; 12c tempered HMC (8 chains, 100 + 200, at most 12
+   rungs) through the ladder probe, then a second call that must reuse the
+   persisted adaptation; 12d static NUTS, VI and minibatch SGLD at cut
+   budgets, below the MAP arm's NMSE; 12e one diverging chain inside a
+   batch, counted while the others move.  K1b must launch once per batched
+   gradient.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
 and GEMM routes, the crossover, the posterior through K3, and each path of
-phase 11) and read just after; every training phase must launch K1f and
+phases 11 and 12) and read just after; every training phase must launch K1f and
 K1b, the streaming kernel
 route K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f
-nor K2b, the crossover K4 and K3, the posterior K3; the serving,
-training and streaming paths must launch neither K3 nor K4 (their
-posterior stays on torch's pair).  The line before the last is a JSON
+nor K2b, the crossover K4 and K3, the posterior K3, the Bayes paths K1f
+and K1b but no K2 kernel; the serving, training, streaming and Bayes
+paths must launch neither K3 nor K4 (their posterior stays on torch's
+pair).  The line before the last is a JSON
 object with each kernel's launches, error and times, its bound (the
 larger of its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s,
 from this run's shapes) and the time of one library call for the same
@@ -194,9 +208,11 @@ K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
 # time, one block of phase 9, then the served kin8nm model beside it, and
 # for K1f and K1b the batched launches of phase 11a.
 KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm", "batch-boston",
-                                   "batch-kin8nm", "batch-d256"),
+                                   "batch-kin8nm", "batch-d256",
+                                   "batch-bayes"),
                        "phi_bwd": ("block", "kin8nm", "batch-boston",
-                                   "batch-kin8nm", "batch-d256"),
+                                   "batch-kin8nm", "batch-d256",
+                                   "batch-bayes"),
                        "gram_fwd": ("block", "kin8nm"),
                        "gram_bwd": ("block", "kin8nm")}
 # The kernel route, the GEMM route and the dense path each sum the 1e6 rows
@@ -220,9 +236,10 @@ STREAM_PEAK_EXTRA = 64 << 20
 # Phase 11a: (name, B, N, D, K) of K1f and K1b with a trial axis: the
 # boston sweep's trials (50 trials, 455 training rows, D=13, m=50 with
 # S=20: K=70), eight kin8nm trials at the served model's width, and four at
-# D=256, where both kernels take their wide design.
+# D=256, where both kernels take their wide design; and the 32 chains of
+# phase 12's fleet at the Bayes width (S=20, M=50: K=50).
 BATCH_SHAPES = [("boston", 50, 455, 13, 70), ("kin8nm", 8, 6553, 8, 277),
-                ("d256", 4, 4096, 256, 500)]
+                ("d256", 4, 4096, 256, 500), ("bayes", 32, 6553, 8, 50)]
 # Phase 11b: the trials of fit_fast_batch against sequential fit_fast.  In
 # float64 (the plain feature map on the card) they are held at the JAX
 # package's tolerances (tests/test_batch_fit.py:49-72): equal iteration
@@ -271,6 +288,39 @@ FIT_KW = dict(obj="SCORE", algo=ADAM, max_iter=200, cvrg_tol=1e-5,
 FIT_FAST_KW = dict(FIT_KW, recalibrate=True)
 CHECKPOINT_EVERY = 20
 SEED = 0
+
+# Phase 12: the Bayes layer at the JAX campaign's kin8nm width (S=20, M=50,
+# D=8: sampling dimension 3 + D S + M S = 1163) on the seed-0 split; 12a's
+# batched gradient at the fleet's 32 chains.
+BAYES_MODEL = dict(sparsity=20, nfeats=50)
+BAYES_CHAINS = 32
+# 12b, the fleet recipe (experiments/kin8nm_bayes_probe.py): pinned in law
+# against the JAX package's three seeds (experiments/results/
+# bayes_predictive/results.json: NMSE 0.0283 +- 0.0020, MNLP -1.602 +-
+# 0.013), at about mean + 3 sigma.  Both beat that campaign's MAP (0.0641,
+# -1.241) and ensemble (0.0499, -1.314) arms.
+FLEET_NMSE_PIN, FLEET_MNLP_PIN = 0.034, -1.56
+# 12c, the campaign's tempered budget; the second call (the persisted
+# adaptation, no probe and no warmup) samples TEMPERED_REUSE_SAMPLES more.
+TEMPERED_KW = dict(sampler="tempered", chains=8, num_warmup=100,
+                   num_samples=200, num_integration_steps=16,
+                   init_step_size=0.003, max_rungs=12)
+TEMPERED_REUSE_SAMPLES = 30
+# 12d, cut to fit the run: static NUTS of depth 5 (32 batched gradients a
+# transition), VI and minibatch SGLD, each from fit_ensemble's members (VI
+# from the MAP: it starts at the chains' mean).  Pinned below the MAP arm's
+# NMSE.
+MAP_NMSE = 0.064
+CUT_ARMS = {
+    "nuts": dict(sampler="nuts", chains=8, num_warmup=25, num_samples=25,
+                 depth=5, init_step_size=0.003, shared_adaptation=False,
+                 chain_init="ensemble", map_iters=200),
+    "vi": dict(sampler="vi", chains=8, num_warmup=600, num_samples=50,
+               chain_init="map", map_iters=300),
+    "sgld": dict(sampler="sgld", chains=8, num_warmup=300, num_samples=150,
+                 thin=2, batch_size=256, init_step_size=1e-5,
+                 chain_init="ensemble", map_iters=200),
+}
 
 
 def say(phase, **fields):
@@ -1190,6 +1240,224 @@ def sweeps_phase(launches, workdir):
               f"{name}: an RMSE is not finite")
 
 
+# The Bayes paths launch K1f and K1b only: no statistics kernel (the
+# streaming Bayes objective is not ported) and no Cholesky kernel.
+BAYES_NONE = CHOL_KERNELS + ("gram_fwd", "gram_bwd")
+
+
+def random_chains(m, chains, seed):
+    """``chains`` random positions (chains, P) in model ``m``'s reduced
+    sampling space, from ``init_params`` with a generator seeded ``seed``,
+    on the model's device."""
+    from scfgp_tpu_torch.bayes import reduced_dim
+    from scfgp_tpu_torch.models.params import init_params, pack_params
+    P = reduced_dim(m.D, m.S, m.M)
+    gen = torch.Generator().manual_seed(seed)
+    return torch.stack([pack_params(init_params(gen, m.D, m.S, m.M))[:P]
+                        for _ in range(chains)]).to(m.X.device)
+
+
+def bayes_gradient_phase(launches, m):
+    """Phase 12a: the chain-batched log posterior and its gradient on model
+    ``m``'s scaled data at BAYES_CHAINS random positions: the kernel path
+    against the plain feature map, each chain's value within COST_TOL and
+    each block of the gradient (a b c, l_F, r_F) within GRAD_TOL of its
+    largest entry over the chains (the bounds of phase 6); one K1f and one
+    K1b launch for all chains; device and wall ms per batched gradient and
+    the device-busy share (torch.profiler)."""
+    from scfgp_tpu_torch.bayes import batched_value_and_grad, make_logposterior
+    theta = random_chains(m, BAYES_CHAINS, SEED)
+    C, P = theta.shape
+    vg = batched_value_and_grad(make_logposterior(m.X, m.y, m.D, m.S, m.M))
+    vg(theta)  # the first call copies X and y to (C, N, D) and (C, N)
+    torch.cuda.synchronize()
+    launches.start()
+    ld, g = vg(theta)
+    torch.cuda.synchronize()
+    counts = launches.read("bayes_gradient", none=BAYES_NONE)
+    with plain_feature_map():
+        ld_p, g_p = vg(theta)
+    ld_err = float(((ld - ld_p).abs() / ld_p.abs()).max())
+    ds = 3 + m.D * m.S
+    g_err = {name: float((g[:, s] - g_p[:, s]).abs().max()
+                         / g_p[:, s].abs().max())
+             for name, s in (("abc", slice(0, 3)), ("l_F", slice(3, ds)),
+                             ("r_F", slice(ds, P)))}
+    dev_ms, wall_ms, busy, top = device_busy(lambda: vg(theta))
+    with plain_feature_map():
+        plain_dev_ms, plain_wall_ms, plain_busy, _ = device_busy(
+            lambda: vg(theta))
+    row = dict(chains=C, dim=P, rows=m.N, d=m.D, s=m.S, m=m.M,
+               ld_rel_err=ld_err, grad_rel_err=g_err, device_ms=dev_ms,
+               wall_ms=wall_ms, chain_device_ms=dev_ms / C,
+               chain_wall_ms=wall_ms / C, busy=busy,
+               call_ms=median_ms(lambda: vg(theta), reps=5, inner=5),
+               plain_device_ms=plain_dev_ms, plain_wall_ms=plain_wall_ms,
+               plain_busy=plain_busy, top_kernels_ms=top, launches=counts)
+    say("bayes_gradient", **row)
+    check(counts["phi_fwd"] == 1 and counts["phi_bwd"] == 1,
+          f"one batched gradient of {C} chains launched {counts}")
+    check(bool(torch.isfinite(ld).all() and torch.isfinite(g).all()),
+          "bayes gradient: a value is not finite")
+    check(ld_err <= COST_TOL and max(g_err.values()) <= GRAD_TOL,
+          f"bayes gradient: kernel and plain paths differ: value {ld_err}, "
+          f"gradient {g_err}")
+
+
+def hmc_gradients(cfg, probe_warmup=0):
+    """Batched gradients of an HMC or tempered run: L + 1 a transition."""
+    return ((probe_warmup + cfg["num_warmup"] + cfg["num_samples"])
+            * (cfg["num_integration_steps"] + 1))
+
+
+def bayes_fleet_phase(launches, workdir):
+    """Phase 12b: the fleet recipe through the ported probe experiment on the
+    kin8nm seed-0 split, then ``predict_bayes`` raw and recalibrated; K1b
+    launched once per batched gradient, the pins FLEET_*_PIN."""
+    from scfgp_tpu_torch.experiments import kin8nm_bayes_probe as probe
+    launches.start()
+    out = probe.main(["--skip-tempered", "--out", workdir])
+    counts = launches.read("bayes_fleet", none=BAYES_NONE)
+    rec = out["arms"]["hmc_fleet32"]
+    grads = hmc_gradients(rec["config"])
+    say("bayes_fleet", floor_nmse=out["floor_nmse"], **rec,
+        batched_gradients=grads,
+        gradients_per_s=grads / rec["sampler_wall_s"], launches=counts)
+    check(counts["phi_bwd"] == grads, f"the fleet's {grads} batched "
+          f"gradients launched K1b {counts['phi_bwd']} times")
+    check(np.isfinite([rec["NMSE"], rec["MNLP"]]).all(),
+          "fleet: a metric is not finite")
+    check(rec["NMSE"] <= FLEET_NMSE_PIN and rec["MNLP"] <= FLEET_MNLP_PIN,
+          f"fleet: NMSE {rec['NMSE']} / MNLP {rec['MNLP']} miss the pins "
+          f"{FLEET_NMSE_PIN} / {FLEET_MNLP_PIN}")
+
+
+def bayes_tempered_phase(launches, data, floor):
+    """Phase 12c: tempered HMC with the ladder probe (a short HMC warmup,
+    then the energy-matched ladder), then a second call on the same data
+    and configuration, which must reuse the persisted adaptation: no probe,
+    no warmup, only its own sampling gradients."""
+    from scfgp_tpu_torch.experiments.kin8nm_bayes_probe import run_arm
+    from scfgp_tpu_torch.utils.metrics import regression_metrics
+    Xt, yt, Xv, yv = data
+    launches.start()
+    rec, m = run_arm(Xt, yt, Xv, yv, floor, **TEMPERED_KW)
+    counts = launches.read("bayes_tempered", none=BAYES_NONE)
+    probe_w = max(min(TEMPERED_KW["num_warmup"], 100), 10) + 8
+    grads = hmc_gradients(TEMPERED_KW, probe_w)
+    say("bayes_tempered", **rec, batched_gradients=grads,
+        gradients_per_fit_s=grads / rec["wall_s"], launches=counts)
+    check(counts["phi_bwd"] == grads, f"tempered: {grads} batched gradients "
+          f"launched K1b {counts['phi_bwd']} times")
+    check(np.isfinite([rec["NMSE"], rec["MNLP"]]).all()
+          and rec["swap_rate"] > 0.0,
+          f"tempered: NMSE {rec['NMSE']}, MNLP {rec['MNLP']}, swap rate "
+          f"{rec['swap_rate']}")
+    import warnings
+    launches.start()
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m.fit_bayes(Xt, yt, **dict(TEMPERED_KW,
+                                   num_samples=TEMPERED_REUSE_SAMPLES))
+    wall = time.perf_counter() - t
+    counts = launches.read("bayes_tempered_reuse", none=BAYES_NONE)
+    met = regression_metrics(*m.predict_bayes(Xv), np.reshape(yv, (-1, 1)))
+    steps = next(iter(m._bayes_adaptation.values()))["steps_done"]
+    grads = TEMPERED_REUSE_SAMPLES * (TEMPERED_KW["num_integration_steps"]
+                                      + 1)
+    say("bayes_tempered_reuse", wall_s=wall, NMSE=met["NMSE"],
+        MNLP=met["MNLP"], swap_rate=float(m.bayes_result.swap_rate),
+        steps_done=steps, batched_gradients=grads, launches=counts)
+    check(counts["phi_bwd"] == grads and m.bayes_result.warmup_state is None,
+          f"tempered reuse: {grads} sampling gradients but K1b launched "
+          f"{counts['phi_bwd']} times (a probe or a warmup ran)")
+    check(steps == TEMPERED_KW["num_warmup"] + TEMPERED_KW["num_samples"]
+          + TEMPERED_REUSE_SAMPLES, f"tempered reuse: {steps} steps done")
+    check(np.isfinite([met["NMSE"], met["MNLP"]]).all(),
+          "tempered reuse: a metric is not finite")
+
+
+def bayes_cut_arms_phase(launches, data, floor):
+    """Phase 12d: static NUTS, VI and minibatch SGLD at CUT_ARMS' budgets;
+    each must give finite predictions below the MAP arm's NMSE, launching
+    K1b at least once per batched gradient of its sampler (the chain
+    inits' fits launch it too)."""
+    from scfgp_tpu_torch.experiments.kin8nm_bayes_probe import run_arm
+    for name, kw in CUT_ARMS.items():
+        launches.start()
+        rec, _ = run_arm(*data, floor, **kw)
+        counts = launches.read(f"bayes_{name}", none=BAYES_NONE)
+        grads = {"nuts": (kw["num_warmup"] + kw["num_samples"])
+                 * 2 ** kw.get("depth", 0),
+                 "vi": kw["num_warmup"],
+                 "sgld": kw["num_warmup"] + kw["num_samples"]
+                 * kw.get("thin", 1)}[name]
+        say("bayes_" + name, **rec, sampler_gradients=grads, launches=counts)
+        check(counts["phi_bwd"] >= grads, f"{name}: {grads} batched "
+              f"gradients launched K1b {counts['phi_bwd']} times")
+        check(np.isfinite([rec["NMSE"], rec["MNLP"]]).all()
+              and rec["NMSE"] < MAP_NMSE,
+              f"{name}: NMSE {rec['NMSE']} (MNLP {rec['MNLP']}) is not "
+              f"finite and below the MAP arm's {MAP_NMSE}")
+
+
+def bayes_diverging_phase(launches, m):
+    """Phase 12e: fleet HMC over 8 chains at the Bayes width, chain 0 put
+    at b = 1000, where the feature scale overflows and its log posterior
+    is not finite: it must stay where it is and count a divergence every
+    transition while the other chains move, with one K1b launch per
+    batched gradient."""
+    from scfgp_tpu_torch.bayes import hmc_sample, make_logposterior
+    theta = random_chains(m, 8, SEED + 1)
+    theta[0, 1] = 1e3
+    lp = make_logposterior(m.X, m.y, m.D, m.S, m.M)
+    cfg = dict(num_warmup=5, num_samples=10, num_integration_steps=4)
+    gen = torch.Generator(device=theta.device).manual_seed(SEED)
+    launches.start()
+    res = hmc_sample(lp, theta, gen, init_step_size=0.003,
+                     shared_adaptation=False, **cfg)
+    torch.cuda.synchronize()
+    counts = launches.read("bayes_diverging", none=BAYES_NONE)
+    with torch.no_grad():
+        ld0 = float(lp(theta[:1])[0])
+    draws = res.samples
+    row = dict(chains=8, ld_chain0=ld0,
+               finite=bool(torch.isfinite(draws).all()),
+               stuck=torch.equal(draws[:, 0],
+                                 theta[0].expand(cfg["num_samples"], -1)),
+               others_moved=bool((draws[-1, 1:] != theta[1:]).any(1).all()),
+               divergences=int(res.divergences),
+               accept=float(res.accept_rate), launches=counts)
+    say("bayes_diverging", **row)
+    check(not math.isfinite(ld0), "the diverging chain's log posterior is "
+          "finite")
+    check(row["finite"] and row["stuck"] and row["others_moved"]
+          and row["divergences"] >= cfg["num_samples"],
+          f"a diverging chain stopped or spoiled the batch: {row}")
+    check(counts["phi_bwd"] == hmc_gradients(cfg),
+          f"diverging batch: K1b launched {counts['phi_bwd']} times")
+
+
+def bayes_phase(launches, workdir):
+    """Phase 12: the Bayes layer on the kin8nm seed-0 split at the JAX
+    campaign's width, 12a-12e."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_kin8nm, surrogate_floor
+    t = time.perf_counter()
+    Xt, yt, Xv, yv, meta = load_kin8nm(seed=0)
+    floor = (surrogate_floor(meta["name"], Xv, yv)["NMSE"]
+             if meta["source"] == "synthetic-surrogate" else None)
+    m = SCFGP(**BAYES_MODEL, seed=SEED, device="cuda")
+    m.set_data(Xt, yt)
+    bayes_gradient_phase(launches, m)
+    bayes_fleet_phase(launches, workdir)
+    bayes_tempered_phase(launches, (Xt, yt, Xv, yv), floor)
+    bayes_cut_arms_phase(launches, (Xt, yt, Xv, yv), floor)
+    bayes_diverging_phase(launches, m)
+    say("bayes", seconds=time.perf_counter() - t)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1694,6 +1962,11 @@ def main():
     sweep_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_sweeps_")
     sweeps_phase(launches, sweep_dir.name)
     sweep_dir.cleanup()
+
+    # 12. the Bayes layer ---------------------------------------------------
+    bayes_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_bayes_")
+    bayes_phase(launches, bayes_dir.name)
+    bayes_dir.cleanup()
 
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",

@@ -5,8 +5,10 @@ reference the port is held against.  This package imports neither JAX nor
 ``scfgp_tpu``.  It covers training (the objective's gradient, the optimizer
 zoo, the host and fused early-stopping loops: ``fit``/``fit_fast``) and
 serving (load a trained model, condition its posterior on data, answer
-predict requests, fold in new observations, recalibrate the dispersion)
-and the streaming objective for large N (``ops/streaming.py``).  The trig
+predict requests, fold in new observations, recalibrate the dispersion),
+the streaming objective for large N (``ops/streaming.py``), and the
+Bayes layer (``bayes/``: chain-parallel HMC, static NUTS, tempering, VI
+and SGLD over the hyperparameter posterior, ``SCFGP.fit_bayes``).  The trig
 feature map and its gradient (``csrc/phi_fwd.cu``, ``csrc/phi_bwd.cu``),
 the Phi-free sufficient statistics and their gradient
 (``csrc/gram_fwd.cu``, ``csrc/gram_bwd.cu``) and the blocked Cholesky
@@ -22,6 +24,8 @@ from .models.objective import (SufficientStats, Posterior, fourier_features,
                                loss_and_grad, predict_f)
 from .data.scaler import Scaler
 from .models.model import SCFGP, fit_fast_batch
+from .bayes import (hmc_sample, nuts_sample_static, fit_vi, vi_sample,
+                    make_logposterior, predictive_mixture)
 
 __version__ = "0.1.0"
 

@@ -18,10 +18,14 @@ gradient for all B trials, so K1f and K1b launch once a step whatever B;
 ``fit_ensemble`` trains k restarts that way and predicts with their
 mixture.
 
+The Bayes layer: ``fit_bayes`` samples the hyperparameter posterior with
+all chains (rungs, Monte-Carlo samples) as the trial axis of one batched
+log posterior (``bayes/``), and ``predict_bayes`` mixes over the draws.
+
 Not ported yet, each raising ``NotImplementedError`` with the ROADMAP.md
 item that brings it: the ``visualizer`` argument, ``mesh=`` (of
-``optimize_fused`` and ``fit_fast_batch``) and ``fit_bayes``.  The JAX
-package's non-finite refit under an auto-resolved 1-pass TPU matmul
+``optimize_fused`` and ``fit_fast_batch``) and ``streaming_block`` of
+``fit_bayes``.  The JAX package's non-finite refit under an auto-resolved 1-pass TPU matmul
 precision (``_precision_fallback_needed``, ``model.py:1488-1518``, and
 its per-trial form in ``fit_fast_batch``, ``:310-322``) has no
 counterpart: the port computes in IEEE float32 with TF32 off, so the
@@ -49,7 +53,7 @@ from .objective import (Posterior, feature_block, loss_and_grad, loss_fn,
                         predict_f, softplus, solve_posterior,
                         sufficient_stats)
 from .params import (SCFGPParams, init_params, opt_state_from_numpy,
-                     opt_state_to_numpy, resolve_sparsity)
+                     opt_state_to_numpy, pack_params, resolve_sparsity)
 
 DEFAULT_OPT = {
     # Reference defaulting, SCFGP.py:193-202 (adam overrides beta2 to 0.999).
@@ -291,7 +295,11 @@ class SCFGP:
         self.params: Optional[SCFGPParams] = None
         self.post: Optional[Posterior] = None
         self.cost = None          # forward objective of the last set_data
-        self.thetas = None        # posterior draws, kept from a checkpoint
+        self.thetas = None        # posterior draws (fit_bayes, checkpoint)
+        self.bayes_result = None  # the sampler's result (fit_bayes)
+        self.bayes_diagnostics = None  # its Diagnostics (R-hat, ESS) ...
+        self.bayes_diagnostics_wall = None  # ... and wall seconds (ESS/s)
+        self._bayes_adaptation = {}  # persisted tempered adaptation by key
         self._train_state = None  # resume states, kept from a checkpoint
         self._fused_train_state = None
         self._stats = None        # update_data sufficient-stats cache
@@ -836,9 +844,261 @@ class SCFGP:
         self.min_obj_ind = -1
         return self
 
-    def fit_bayes(self, *args, **kwargs):
-        """``scfgp_tpu`` ``SCFGP.fit_bayes``: not ported yet."""
-        raise _not_ported("fit_bayes", "item 7 (Bayes layer)")
+    def _chain_inits(self, X, y, chains, P, chain_init, map_iters,
+                     init_jitter):
+        """Initial positions (chains, P) of ``fit_bayes``, from one seed of
+        ``self._rng`` (the JAX package's chain keys): random inits, or the
+        MAP of a ``fit_fast``, or ``fit_ensemble``'s members cycled to
+        ``chains``, each plus Gaussian jitter."""
+        gen = torch.Generator().manual_seed(self._rng.randint(0, 2**31 - 1))
+        if chain_init == "random":
+            return torch.stack([pack_params(init_params(
+                gen, self.D, self.S, self.M, self.dtype))[:P]
+                for _ in range(chains)]).to(self.device)
+        if chain_init == "map":
+            self.fit_fast(X, y, obj="COST", max_iter=map_iters)
+            base = pack_params(self.params)[:P].expand(chains, P)
+        else:
+            self.fit_ensemble(X, y, k=chains, obj="COST", max_iter=map_iters)
+            members = torch.stack([pack_params(p)[:P]
+                                   for p, _ in self._ensemble])
+            base = members.repeat(-(-chains // len(members)), 1)[:chains]
+        self.set_data(X, y)  # the fit took the eval history slot
+        jitter = torch.randn((chains, P), generator=gen, dtype=self.dtype)
+        return base + init_jitter * jitter.to(self.device)
+
+    def fit_bayes(self, X, y, Xv=None, yv=None, sampler: str = "hmc",
+                  chains: int = 8, num_warmup: int = 200,
+                  num_samples: int = 200, num_integration_steps: int = 16,
+                  init_step_size: float = 0.003, depth: int = 5,
+                  betas=None, thin: int = 1, streaming_block: int = 0,
+                  max_rungs: int = 16, target_accept: float = 0.8,
+                  batch_size: int = 0, step_decay: float = 0.0,
+                  chain_init: str = "random", map_iters: int = 200,
+                  init_jitter: float = 0.05, segment: int = 0,
+                  shared_adaptation: bool = True,
+                  reuse_adaptation: bool = True):
+        """Bayesian fit: chain-parallel sampling of the hyperparameter
+        posterior, then posterior-predictive mixing
+        (``scfgp_tpu/models/model.py:1038-1486``).  ``sampler``:
+
+          * ``"hmc"``: HMC (``bayes/hmc.py``), L+1 batched gradients a
+            transition; ``shared_adaptation=False`` adapts a step size and
+            a mass per chain, the fleet mode;
+          * ``"nuts"``: static multinomial NUTS of ``depth`` doublings
+            (``bayes/nuts.py``), 2^depth batched gradients a transition;
+          * ``"tempered"``: replica-exchange HMC (``bayes/tempering.py``);
+            without ``betas``, a short HMC probe warms the chains, an
+            energy-matched ladder (target gap 0.75, at most ``max_rungs``)
+            is measured on its draws, and the warmed chains seed the cold
+            rung;
+          * ``"vi"``: mean-field VI, ``num_warmup`` ELBO steps, then
+            ``num_samples x chains`` draws (``bayes/vi.py``);
+          * ``"sgld"``: pSGLD (``bayes/sgld.py``), ``batch_size`` rows a
+            step (0: full gradient), step size ``init_step_size`` decaying
+            by ``step_decay``, ``thin`` applied on the device.
+
+        ``chain_init``: ``"random"`` inits, ``"map"`` (``fit_fast(obj=
+        "COST", max_iter=map_iters)`` plus ``init_jitter``) or
+        ``"ensemble"`` (``fit_ensemble(k=chains)``'s members plus jitter).
+        Sampling runs in the phase-free reduced space, dimension 3 + DS +
+        MS; every batched gradient is one K1f and one K1b launch on the
+        card whatever the chain count.  The draws, thinned by ``thin`` on
+        the host, are ``self.thetas`` for ``predict_bayes``; the sampler's
+        result is ``self.bayes_result`` and its split-R-hat/ESS
+        ``self.bayes_diagnostics`` (wall time ``bayes_diagnostics_wall``).
+
+        ``reuse_adaptation`` (tempered): the ladder, per-rung step sizes
+        and masses and all rungs' final positions are kept on the model,
+        keyed by the data's fingerprint and the sampler's configuration; a
+        second call with the same key skips the probe and the warmup and
+        continues the chains (the swap parity too).
+
+        Three parameters do not act as in the JAX package.  ``segment`` is
+        accepted and the run is one-shot: segmented and one-shot runs are
+        the same in law there, and segmenting existed only for a TPU
+        worker's execution limit.  The samplers run in IEEE float32 with
+        TF32 off (the port has no ``mm_dtype``/``mm_precision``), what the
+        JAX package forces on its samplers anyway.  ``streaming_block > 0``
+        raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7)."""
+        from ..bayes import (diagnose, hmc_sample, make_logposterior,
+                             make_minibatch_value_and_grad,
+                             nuts_sample_static, sgld_sample,
+                             tempered_hmc_sample, vi_posterior_sample)
+        from ..bayes.predictive import refuse_streaming
+        from ..bayes.tempering import energy_matched_ladder
+        from .params import reduced_dim
+
+        del segment  # one-shot: see the docstring
+        refuse_streaming(streaming_block)
+        if sampler not in ("hmc", "nuts", "tempered", "vi", "sgld"):
+            raise ValueError(
+                f"unknown sampler '{sampler}' (hmc|nuts|tempered|vi|sgld)")
+        if chain_init not in ("random", "map", "ensemble"):
+            raise ValueError(
+                "chain_init must be 'random', 'map', or 'ensemble'")
+        self.set_data(X, y)
+        P = reduced_dim(self.D, self.S, self.M)
+        init = self._chain_inits(X, y, chains, P, chain_init, map_iters,
+                                 init_jitter)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self._rng.randint(0, 2**31 - 1))
+        logpost = make_logposterior(self.X, self.y, self.D, self.S, self.M,
+                                    basis_fn=self.extra_basis)
+        hmc_kw = dict(num_integration_steps=num_integration_steps,
+                      init_step_size=float(init_step_size),
+                      target_accept=float(target_accept))
+        reuse = akey = None
+        if sampler == "tempered":
+            akey = ("tempered", self._data_fingerprint(), self.S, self.M,
+                    int(chains), int(num_integration_steps),
+                    float(target_accept), float(init_step_size),
+                    int(max_rungs), None if betas is None
+                    else tuple(np.asarray(betas).ravel().tolist()))
+            if reuse_adaptation:
+                reuse = self._bayes_adaptation.get(akey)
+            if reuse is not None:
+                betas = reuse["betas"]
+                num_warmup = 0  # continuation: no re-warmup
+                self.message(
+                    "fit_bayes(tempered): reusing persisted adaptation "
+                    "(%d rungs, %d prior steps) - warmup skipped"
+                    % (len(betas), int(reuse["steps_done"])))
+            elif betas is None:
+                # The ladder needs std(E) in the typical set, not at the
+                # random inits: a short HMC warmup first, then the pooled
+                # std of its draws (``model.py:1274-1293``).
+                warm = hmc_sample(logpost, init, gen,
+                                  num_warmup=max(min(num_warmup, 100), 10),
+                                  num_samples=8,
+                                  shared_adaptation=shared_adaptation,
+                                  **hmc_kw)
+                betas = energy_matched_ladder(
+                    logpost, warm.samples.reshape(-1, P), target_gap=0.75,
+                    max_rungs=max_rungs)
+                init = warm.samples[-1]  # warmed chains seed the cold rung
+
+        t0 = time.time()
+        if sampler == "hmc":
+            res = hmc_sample(logpost, init, gen, num_warmup=num_warmup,
+                             num_samples=num_samples,
+                             shared_adaptation=shared_adaptation, **hmc_kw)
+        elif sampler == "nuts":
+            res = nuts_sample_static(
+                logpost, init, gen, num_warmup=num_warmup,
+                num_samples=num_samples, depth=depth,
+                init_step_size=float(init_step_size),
+                target_accept=float(target_accept),
+                shared_adaptation=shared_adaptation)
+        elif sampler == "tempered":
+            cont = {} if reuse is None else dict(
+                init_all_rungs=self._tensor(reuse["positions"]),
+                adapted=(self._tensor(reuse["eps"]),
+                         self._tensor(reuse["inv_mass"])),
+                step_offset=int(reuse["steps_done"]))
+            res = tempered_hmc_sample(
+                logpost, init, gen, betas=self._tensor(betas),
+                num_warmup=num_warmup, num_samples=num_samples, **hmc_kw,
+                **cont)
+        elif sampler == "vi":
+            res = vi_posterior_sample(logpost, init, gen,
+                                      num_warmup=num_warmup,
+                                      num_samples=num_samples)
+        else:
+            vg = make_minibatch_value_and_grad(
+                self.X, self.y, self.D, self.S, self.M, int(batch_size),
+                basis_fn=self.extra_basis)
+            res = sgld_sample(vg, init, gen, num_warmup=num_warmup,
+                              num_samples=num_samples,
+                              step_size=float(init_step_size),
+                              step_decay=float(step_decay),
+                              thin=max(thin, 1))
+            thin = 1  # thinned on the device
+        draws = _to_numpy(res.samples)  # the host read ends the clock
+        wall = time.time() - t0
+        self.bayes_result = res
+        if akey is not None:
+            steps_prev = 0 if reuse is None else int(reuse["steps_done"])
+            self._bayes_adaptation[akey] = {
+                "betas": _to_numpy(torch.as_tensor(betas)),
+                "eps": _to_numpy(res.step_sizes),
+                "inv_mass": _to_numpy(res.inv_mass),
+                "positions": _to_numpy(res.final_positions),
+                "steps_done": steps_prev + num_warmup + num_samples,
+            }
+        self.thetas = self._tensor(draws[::max(thin, 1)].reshape(-1, P))
+        self.evals["TIME(s)"][1].append(wall)
+        ndiv = getattr(res, "divergences", None)
+        self.bayes_diagnostics = diagnose(
+            draws, None if ndiv is None else int(ndiv),
+            logdensities=_to_numpy(res.logdensities))
+        self.bayes_diagnostics_wall = wall
+        d = self.bayes_diagnostics
+        self.message("Bayes fit: %s accept=%.3f draws=%d wall=%.1fs %s "
+                     "ess/s=%.1f" % (
+                         sampler, float(getattr(res, "accept_rate",
+                                                float("nan"))),
+                         self.thetas.shape[0], wall, d.summary(),
+                         d.min_ess_bulk / max(wall, 1e-9)))
+        if d.max_rhat > 1.05:
+            import warnings
+            # Minibatch SGLD's log densities share each step's rows across
+            # chains, which deflates their R-hat: no symmetry downgrade.
+            trusted = not (sampler == "sgld" and batch_size)
+            if (trusted and np.isfinite(d.rhat_logdensity)
+                    and d.rhat_logdensity <= 1.05):
+                warnings.warn(
+                    "fit_bayes(%s): coordinate max split-R-hat = %.3f but "
+                    "log-density R-hat = %.3f <= 1.05 — chains are in "
+                    "symmetric/equal-density basins (gauge symmetry), not "
+                    "stuck; predictive mixing is likely fine, verify on "
+                    "held-out MNLP." % (sampler, d.max_rhat,
+                                        d.rhat_logdensity), stacklevel=2)
+            else:
+                warnings.warn(
+                    "fit_bayes(%s): max split-R-hat = %.3f > 1.05 — chains "
+                    "have not mixed; posterior-predictive results are "
+                    "unreliable. Increase num_warmup/num_samples or use "
+                    "sampler='tempered' for multimodal posteriors."
+                    % (sampler, d.max_rhat), stacklevel=2)
+        if Xv is not None and yv is not None:
+            self.predict_bayes(Xv, yv)
+            self.min_obj_ind = -1
+        return self
+
+    def _data_fingerprint(self):
+        """Sums and square sums of the scaled training data: the data half
+        of the persisted tempered adaptation's key
+        (``scfgp_tpu/models/model.py:1520-1529``)."""
+        if self.X is None:
+            return None
+        return (int(self.N), int(self.D),
+                float(torch.sum(self.X)), float(torch.sum(self.X * self.X)),
+                float(torch.sum(self.y)), float(torch.sum(self.y * self.y)))
+
+    def predict_bayes(self, Xs, ys=None, recalibrate: bool = False):
+        """Posterior-predictive mean and std over the ``fit_bayes`` draws,
+        in original units (``scfgp_tpu/models/model.py:1680-1714``): the
+        mixture of ``bayes/predictive.py::predictive_mixture``, un-scaled
+        by the half-range rule; logs the metrics when ``ys`` is given.
+        ``recalibrate=True`` recalibrates the dispersion draw by draw."""
+        from ..bayes.predictive import predictive_mixture
+        if self.thetas is None:
+            raise RuntimeError(
+                "predict_bayes() before sampling: call fit_bayes() first")
+        if self.X is None:
+            raise RuntimeError(
+                "predict_bayes() after load(): call set_data() with the "
+                "original training data first (draws condition on it)")
+        mu_f, std_f = predictive_mixture(
+            self.thetas, self.X, self.y, self._scale_X(Xs), self.D, self.S,
+            self.M, basis_fn=self.extra_basis, recalibrate=recalibrate)
+        mu_y, std_y = self._unscale_moments(mu_f, std_f)
+        if ys is not None:
+            ys = np.asarray(ys).reshape(-1, 1)
+            for k, v in regression_metrics(mu_y, std_y, ys).items():
+                self.evals[k][1].append(v)
+        return mu_y, std_y
 
     # -- prediction -----------------------------------------------------------
 

@@ -204,8 +204,19 @@ def feature_block(p: SCFGPParams, X: torch.Tensor,
 
 
 def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
-                  w: Optional[torch.Tensor] = None):
-    """``loss_fn`` given the feature block ``Phi`` of the training rows."""
+                  w: Optional[torch.Tensor] = None,
+                  residual_fit: bool = False):
+    """``loss_fn`` given the feature block ``Phi`` of the training rows.
+
+    The data-fit term ``(yᵀy - βᵀβ) / σ²`` is the reference's
+    (``SCFGP.py:126``; the cancellation the JAX package notes at
+    ``scfgp_tpu/models/objective.py:34-36``).  ``residual_fit=True`` takes the same quantity
+    as ``(‖y - Φα‖² + (σ² + ε)‖α‖²) / σ²``: equal in exact arithmetic
+    (``βᵀβ = yᵀΦα`` and ``Aα = Φᵀy``), but a difference of two sums of
+    size ``yᵀy`` no longer divides by a small σ².  In float32 on an H100 at
+    kin8nm width the reference's form is off by ~0.5 nat where σ² ~ 1e-3,
+    noise that stalls HMC; the residual form is ~1e-2 (PERF.md).
+    Its error is also second order in α's, since α minimises it."""
     y = y.reshape(Phi.shape[:-1])
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
@@ -214,10 +225,17 @@ def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
     mu_f, var_f = latent_moments(Phi, post)
     enll_rows = expected_nll_rows(mu_f, var_f, y, noise)
     if w is not None:
-        enll_rows = enll_rows * w.reshape(y.shape).to(enll_rows.dtype)
+        w = w.reshape(y.shape).to(enll_rows.dtype)
+        enll_rows = enll_rows * w
+    if residual_fit:
+        r2 = (mu_f - y) ** 2 if w is None else w * (mu_f - y) ** 2
+        fit = torch.sum(r2, dim=-1) + (sig2_n + EPSILON) * torch.sum(
+            post.alpha * post.alpha, dim=-1)
+    else:
+        fit = stats.yTy - torch.sum(post.beta * post.beta, dim=-1)
     nlml = (2.0 * torch.sum(post.log_diag_L, dim=-1)
             + 2.0 * torch.sum(enll_rows, dim=-1)
-            + (stats.yTy - torch.sum(post.beta * post.beta, dim=-1)) / sig2_n
+            + fit / sig2_n
             + 2.0 * (stats.n - p.M) * p.a)
     penalty = kl_penalty(p)
     cost = (nlml + penalty) / stats.n
@@ -225,10 +243,13 @@ def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
 
 
 def loss_fn(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
-            w: Optional[torch.Tensor] = None, basis_fn=None):
+            w: Optional[torch.Tensor] = None, basis_fn=None,
+            residual_fit: bool = False):
     """SCFGP objective ``cost = (nlml + penalty) / N`` (``SCFGP.py:92-128``
-    term by term).  Returns ``(cost, LossAux)``."""
-    return loss_from_phi(p, feature_block(p, X, basis_fn), y, w)
+    term by term).  Returns ``(cost, LossAux)``.  ``residual_fit``: see
+    ``loss_from_phi``."""
+    return loss_from_phi(p, feature_block(p, X, basis_fn), y, w,
+                         residual_fit)
 
 
 def predict_from_phi(p: SCFGPParams, post: Posterior, Phis: torch.Tensor):

@@ -91,18 +91,27 @@ def pack_params(p: SCFGPParams) -> torch.Tensor:
 
 
 def unpack_params(theta: torch.Tensor, D: int, S: int, M: int) -> SCFGPParams:
-    """Flat vector -> params (reference layout, ``SCFGP.py:74-90``)."""
+    """Flat vector -> params (reference layout, ``SCFGP.py:74-90``).  A
+    stack of vectors (C, P), the chains of a sampler, gives params whose
+    leaves carry the leading C: the trial layout ``loss_fn`` takes."""
+    lead = theta.shape[:-1]
     i = 3
-    l_F = theta[i:i + D * S].reshape(D, S); i += D * S
-    r_F = theta[i:i + M * S].reshape(M, S); i += M * S
-    l_phase = theta[i:i + S]; i += S
-    phase = theta[i:i + M]
-    return SCFGPParams(a=theta[0], b=theta[1], c=theta[2],
+    l_F = theta[..., i:i + D * S].reshape(*lead, D, S); i += D * S
+    r_F = theta[..., i:i + M * S].reshape(*lead, M, S); i += M * S
+    l_phase = theta[..., i:i + S]; i += S
+    phase = theta[..., i:i + M]
+    return SCFGPParams(a=theta[..., 0], b=theta[..., 1], c=theta[..., 2],
                        l_F=l_F, r_F=r_F, l_phase=l_phase, phase=phase)
 
 
 def num_params(D: int, S: int, M: int) -> int:
     return 3 + D * S + M * S + S + M
+
+
+def reduced_dim(D: int, S: int, M: int) -> int:
+    """Dimension of the phase-free sampling space, ``3 + D*S + M*S``
+    (``scfgp_tpu/bayes/predictive.py:107-109``)."""
+    return 3 + D * S + M * S
 
 
 def _to_tensors(cls, arrays, dtype, device):

@@ -1,5 +1,5 @@
 """The CUDA kernels K1f, K1b, K2f, K2b, K3 and K4 and the port's serving,
-training and streaming paths on an NVIDIA card.
+training, streaming, sweep and Bayes paths on an NVIDIA card.
 
 Every test here needs a card and nvcc: it carries the ``cuda`` marker and
 skips on a machine without one.  This file imports neither JAX nor the JAX
@@ -501,3 +501,52 @@ def test_fit_fast_batch_on_card_matches_sequential(cuda_device):
         c = np.asarray(mb.evals["COST"][1][:BATCH_FIT_EXACT_STEPS])
         assert float(np.max(np.abs(a - c) / np.abs(a))) <= FIT_COST_TOL
         assert np.isfinite(mb.evals["NMSE"][1][-1])
+
+
+@pytest.mark.cuda
+def test_batched_logposterior_gradient_on_card_matches_plain(cuda_device):
+    """Eight chains of the Bayes log posterior (S=20, M=50, 1500 kin8nm
+    rows): value and gradient through K1f and K1b, one launch each for all
+    chains, against the plain feature map on the card, within
+    chip_smoke.COST_TOL per chain and chip_smoke.GRAD_TOL of each block's
+    largest entry (phase 12a's bounds)."""
+    from scfgp_tpu_torch.bayes import batched_value_and_grad, make_logposterior
+    from chip_smoke import (COST_TOL, GRAD_TOL, plain_feature_map,
+                            random_chains)
+    Xt, yt, _, _, _ = load_kin8nm(seed=0)
+    m = SCFGP(sparsity=20, nfeats=50, seed=0, device="cuda")
+    m.set_data(Xt[:1500], yt[:1500])
+    theta = random_chains(m, 8, 0)
+    vg = batched_value_and_grad(make_logposterior(m.X, m.y, m.D, m.S, m.M))
+    launches = (fourier_features_cuda.launches,
+                fourier_features_bwd_cuda.launches)
+    ld, g = vg(theta)
+    assert fourier_features_cuda.launches - launches[0] == 1
+    assert fourier_features_bwd_cuda.launches - launches[1] == 1
+    with plain_feature_map():
+        ld_p, g_p = vg(theta)
+    assert float(((ld - ld_p).abs() / ld_p.abs()).max()) <= COST_TOL
+    ds = 3 + m.D * m.S
+    for s in (slice(0, 3), slice(3, ds), slice(ds, None)):
+        err = (g[:, s] - g_p[:, s]).abs().max() / g_p[:, s].abs().max()
+        assert float(err) <= GRAD_TOL, s
+
+
+@pytest.mark.cuda
+def test_fit_bayes_on_card_launches_once_per_batched_gradient(cuda_device):
+    """A short fleet HMC fit_bayes of a fresh model: K1f and K1b launch
+    once per batched gradient, (warmup + samples) x (L + 1), and no more;
+    the draws and the held-out predictions are finite."""
+    _, _, Xv, yv, _ = load_kin8nm(seed=0)
+    m = SCFGP(sparsity=8, nfeats=20, seed=0, device="cuda")
+    launches = (fourier_features_cuda.launches,
+                fourier_features_bwd_cuda.launches)
+    m.fit_bayes(Xv[:1200], yv[:1200], sampler="hmc", chains=4, num_warmup=3,
+                num_samples=8, num_integration_steps=3, init_step_size=0.003,
+                shared_adaptation=False)
+    grads = (3 + 8) * (3 + 1)
+    assert fourier_features_bwd_cuda.launches - launches[1] == grads
+    assert fourier_features_cuda.launches - launches[0] == grads
+    assert bool(torch.isfinite(m.thetas).all())
+    mu, sd = m.predict_bayes(Xv[1200:])
+    assert np.isfinite(mu).all() and (sd > 0).all()

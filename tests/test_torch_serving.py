@@ -222,7 +222,9 @@ def test_import_leaves_jax_out():
             " scfgp_tpu_torch.experiments.boston_housing,"
             " scfgp_tpu_torch.experiments.abalone,"
             " scfgp_tpu_torch.experiments.kin8nm,"
-            " scfgp_tpu_torch.experiments.co2;"
+            " scfgp_tpu_torch.experiments.co2, scfgp_tpu_torch.bayes,"
+            " scfgp_tpu_torch.experiments.kin8nm_bayes_probe,"
+            " scfgp_tpu_torch.experiments.bayes_precision;"
             "from scfgp_tpu_torch.ops import loss_fn_streaming;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "

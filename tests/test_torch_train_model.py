@@ -190,7 +190,7 @@ def test_parts_not_ported_raise():
         m.optimize(visualizer=object(), max_iter=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.optimize_fused(mesh=object(), max_iter=2)
-    for call in (lambda: m.fit_bayes(Xt, yt),
+    for call in (lambda: m.fit_bayes(Xt, yt, streaming_block=64),
                  lambda: fit_fast_batch([m], [(Xt, yt)], mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             call()
