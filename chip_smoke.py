@@ -206,13 +206,16 @@ K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
 # The shapes (names of K1_SHAPES and K2_SHAPES) at which the kernels line
 # reports K1f, K1b, K2f and K2b: first where a streaming step spends its
 # time, one block of phase 9, then the served kin8nm model beside it, and
-# for K1f and K1b the batched launches of phase 11a.
-KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm", "batch-boston",
-                                   "batch-kin8nm", "batch-d256",
-                                   "batch-bayes"),
-                       "phi_bwd": ("block", "kin8nm", "batch-boston",
-                                   "batch-kin8nm", "batch-d256",
-                                   "batch-bayes"),
+# for K1f and K1b the bench configuration and the batched launches of phase
+# 11a.
+KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm", "bench",
+                                   "batch-boston", "batch-kin8nm",
+                                   "batch-d256", "batch-bayes",
+                                   "batch-tempered"),
+                       "phi_bwd": ("block", "kin8nm", "bench",
+                                   "batch-boston", "batch-kin8nm",
+                                   "batch-d256", "batch-bayes",
+                                   "batch-tempered"),
                        "gram_fwd": ("block", "kin8nm"),
                        "gram_bwd": ("block", "kin8nm")}
 # The kernel route, the GEMM route and the dense path each sum the 1e6 rows
@@ -237,9 +240,11 @@ STREAM_PEAK_EXTRA = 64 << 20
 # boston sweep's trials (50 trials, 455 training rows, D=13, m=50 with
 # S=20: K=70), eight kin8nm trials at the served model's width, and four at
 # D=256, where both kernels take their wide design; and the 32 chains of
-# phase 12's fleet at the Bayes width (S=20, M=50: K=50).
+# phase 12's fleet at the Bayes width (S=20, M=50: K=50), and the 96
+# trials (8 chains x 12 rungs) of phase 12c's tempering at that width.
 BATCH_SHAPES = [("boston", 50, 455, 13, 70), ("kin8nm", 8, 6553, 8, 277),
-                ("d256", 4, 4096, 256, 500), ("bayes", 32, 6553, 8, 50)]
+                ("d256", 4, 4096, 256, 500), ("bayes", 32, 6553, 8, 50),
+                ("tempered", 96, 6553, 8, 50)]
 # Phase 11b: the trials of fit_fast_batch against sequential fit_fast.  In
 # float64 (the plain feature map on the card) they are held at the JAX
 # package's tolerances (tests/test_batch_fit.py:49-72): equal iteration

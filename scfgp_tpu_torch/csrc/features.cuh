@@ -24,16 +24,33 @@
 // s cos and s sin four columns at a time (float4 where ld, K and out allow
 // it).  Registers and shared memory (ptxas, sm_90a): see phi_fwd.cu.
 //
-// Narrow (D < WIDE_D): feature_kernel, a block of 64 rows x 64 feature
-// columns, stages the X rows and Fcat columns of one 32-deep D chunk in
-// shared memory; threadIdx.x walks the feature columns, so every store of a
-// warp is 32 consecutive floats, and each thread keeps 16 projections in
-// registers.  At D = 8 the tile's 128-row side would hold 8 rows of depth,
-// and a launch is mostly stores.
+// Narrow (D < WIDE_D): feature_kernel, compiled for D rounded up to a
+// bucket of 8, 16, 32 or 64 (loops unrolled to the bucket, masked to D).
+// A block takes a contiguous span of rows of one column tile (all K
+// columns up to 512, 256 from D > 16) and stages the span's X rows in
+// shared memory with 16-byte loads where D % 4 == 0; thread (row lane l,
+// column j) keeps Fcat[:, j], pcat[j] and s in registers and maps rows
+// l, l + lanes, ... of the span.  The lanes fill the block (lanes x K
+// threads: 277 at kin8nm, 500 at K = 50), so at most one warp is ragged,
+// with no barrier after the staging and no div or mod per element.  At
+// least 8 rows a thread, else about two waves of full SMs.  Stores stay
+// 4 bytes a thread: a warp's are runs of consecutive floats, and staging
+// Phi in shared memory to write it as aligned 16-byte stores measured
+// slower (0.0568 against 0.0433 ms at the Bayes shape), as did fewer or
+// more waves.  What bounds it at D = 8 is the stores: with sincosf
+// replaced by a copy it took 0.0091 ms at kin8nm, its bound 0.0044.
+// Registers (ptxas, sm_90a; 2-D / batched instances): 40 / 40 at D <= 8
+// with the 32-byte frame of sincosf's slow path, 58 / 62 at 16, 80 / 95
+// at 32 (12 bytes of spills in the 2-D instance), 106 / 110 at 64; 16 KB
+// of shared memory at most.  Device time on an NVIDIA H100 80GB HBM3 at
+// 700.00 W (experiments/kernel_ab.py, PERF.md §6), against the first
+// design in the same run: 0.0107 ms at kin8nm (0.0126), 0.0111 at bench
+// (0.0125), 0.0155 for 50 boston trials (0.0188), 0.0431 for 32 Bayes
+// chains (0.0635), 0.1437 for 96 tempering trials (0.1767).
 //
-// Both sum T in the order d = 0..D-1 with one fp32 FMA at a time from 0,
-// then add pcat, so the two designs give the same bits, and the same T as
-// K1b's phi_t_kernel.
+// Both designs sum T in the order d = 0..D-1 with one fp32 FMA at a time
+// from 0, then add pcat (narrow::project), so the two give the same bits,
+// the same T as K1b's kernels, and the first narrow design's bits.
 //
 // Trials: one launch maps B independent problems of one shape (a batched
 // sweep's trials).  blockIdx.z is the trial; trial z's operands lie at
@@ -43,8 +60,8 @@
 // alignment wherever a row pitch does (n*d with d % 4 == 0, and so on), so
 // the vector paths stay valid for every trial.  The offsets are compiled
 // in only where a launch has more than one trial (BATCHED): moved pointers
-// live in registers (the narrow kernel went from 48 to 60), and the 2-D
-// launch keeps its code, registers and time.
+// live in registers (see the registers above), and the 2-D launch keeps
+// its code, registers and time.
 //
 // Precision: sincosf is the precise libdevice routine.  __sincosf and
 // --use_fast_math are not used: |T| reaches tens and the trig projection
@@ -133,23 +150,77 @@ feature_tile_kernel(sgemm::Operand X, sgemm::Operand F,
 
 // ---- narrow -----------------------------------------------------------
 
-constexpr int TILE_N = 64;
-constexpr int TILE_K = 64;
-constexpr int CHUNK_D = 32;
-constexpr int THREADS_Y = 4;
-constexpr int THREADS = TILE_K * THREADS_Y;
-constexpr int ROWS_PER_THREAD = TILE_N / THREADS_Y;
+namespace narrow {
 
-template <bool BATCHED>
-__global__ void __launch_bounds__(THREADS)
+// D rounded up to the bucket a narrow kernel is compiled for; the loops
+// over D are unrolled to the bucket and masked to D.
+inline int bucket(int d) { return d <= 8 ? 8 : d <= 16 ? 16 : d <= 32 ? 32 : 64; }
+
+// Threads a block may have: 512 while a column of Fcat takes at most 16
+// registers, else 256.
+template <int DB>
+__host__ __device__ constexpr int max_threads() {
+  return DB <= 16 ? 512 : 256;
+}
+
+// x[dd] = row[dd] for dd < d, 0 beyond, from a row of X staged in shared
+// memory with D padded to the bucket (16-byte aligned).
+template <int DB>
+__device__ __forceinline__ void load_staged(const float* row, int d,
+                                            float (&x)[DB]) {
+#pragma unroll
+  for (int dd = 0; dd < DB; dd += 4) {
+    const float4 v = dd < d ? *reinterpret_cast<const float4*>(row + dd)
+                            : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    x[dd] = v.x;
+    x[dd + 1] = v.y;
+    x[dd + 2] = v.z;
+    x[dd + 3] = v.w;
+  }
+}
+
+// f[dd] = Fcat[dd, col] for dd < d, 0 beyond.
+template <int DB>
+__device__ __forceinline__ void load_column(const float* __restrict__ Fcat,
+                                            int d, int k, int col,
+                                            float (&f)[DB]) {
+#pragma unroll
+  for (int dd = 0; dd < DB; ++dd)
+    f[dd] = dd < d ? __ldg(Fcat + static_cast<size_t>(dd) * k + col) : 0.0f;
+}
+
+// X[r, :] Fcat[:, j]: one fp32 FMA at a time from 0, d = 0..D-1, the order
+// of every design of K1f and K1b (pcat is added after).
+template <int DB>
+__device__ __forceinline__ float project(const float (&x)[DB],
+                                         const float (&f)[DB], int d) {
+  float t = 0.0f;
+#pragma unroll
+  for (int dd = 0; dd < DB; ++dd)
+    if (dd < d) t = fmaf(x[dd], f[dd], t);
+  return t;
+}
+
+// Bytes of X rows a block stages; waves of full SMs the grid aims at;
+// rows a thread maps at least.
+constexpr int STAGE_BYTES = 16384;
+constexpr int WAVES = 2;
+constexpr int MIN_PER_THREAD = 8;
+
+// Block (row block, column tile, trial): the block's rows of X are one
+// contiguous span, staged in shared memory by every thread with D padded
+// to the bucket; thread (lane l, column j) keeps Fcat[:, j], pcat[j] and s
+// in registers and maps rows l + i * lanes of the block, i < per_thread.
+// The kc columns of a tile are consecutive threads, so a warp's stores of
+// cos (and of sin) are runs of consecutive floats.
+template <int DB, bool BATCHED>
+__global__ void __launch_bounds__(max_threads<DB>())
 feature_kernel(const float* __restrict__ X, const float* __restrict__ Fcat,
                const float* __restrict__ pcat,
                const float* __restrict__ scale, float* __restrict__ out,
-               int n, int d, int k, int ld) {
-  // +1 column: the staging writes walk a row of xs without bank conflicts.
-  __shared__ float xs[TILE_N][CHUNK_D + 1];
-  __shared__ float fs[CHUNK_D][TILE_K];
-
+               int n, int d, int k, int ld, int kc, int lanes,
+               int per_thread, bool vec) {
+  extern __shared__ __align__(16) float xs[];  // block rows x DB
   if (BATCHED) {
     const size_t z = blockIdx.z;
     X += z * n * d;
@@ -158,58 +229,92 @@ feature_kernel(const float* __restrict__ X, const float* __restrict__ Fcat,
     if (scale != nullptr) scale += z;
     out += z * n * ld;
   }
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TILE_K + tx;
-  const int row0 = blockIdx.x * TILE_N;
-  const int col0 = blockIdx.y * TILE_K;
-  const int col = col0 + tx;
-
-  float acc[ROWS_PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) acc[i] = 0.0f;
-
-  for (int d0 = 0; d0 < d; d0 += CHUNK_D) {
-    const int dc = min(CHUNK_D, d - d0);
-    // Neighbouring threads read neighbouring elements of one X row ...
-    for (int idx = tid; idx < TILE_N * CHUNK_D; idx += THREADS) {
-      const int r = idx / CHUNK_D;
-      const int j = idx % CHUNK_D;
-      const int gr = row0 + r;
-      xs[r][j] = (gr < n && j < dc) ? X[(size_t)gr * d + d0 + j] : 0.0f;
-    }
-    // ... and neighbouring columns of one Fcat row.
-    for (int idx = tid; idx < CHUNK_D * TILE_K; idx += THREADS) {
-      const int j = idx / TILE_K;
-      const int c = idx % TILE_K;
-      const int gc = col0 + c;
-      fs[j][c] = (j < dc && gc < k) ? Fcat[(size_t)(d0 + j) * k + gc] : 0.0f;
-    }
-    __syncthreads();
-    for (int j = 0; j < dc; ++j) {
-      const float f = fs[j][tx];
-      // All 32 lanes of a warp share ty: the xs read is a broadcast.
-#pragma unroll
-      for (int i = 0; i < ROWS_PER_THREAD; ++i)
-        acc[i] = fmaf(xs[ty + i * THREADS_Y][j], f, acc[i]);
-    }
-    __syncthreads();
-  }
-
-  if (col >= k) return;
+  const int l = threadIdx.x / kc;
+  const int col = blockIdx.y * kc + (threadIdx.x - l * kc);
+  const bool mine = l < lanes && col < k;
+  float f[DB];
+  load_column<DB>(Fcat, mine ? d : 0, k, col, f);
+  const float p = mine ? pcat[col] : 0.0f;
   const float s = scale != nullptr ? *scale : 1.0f;
-  const float p = pcat[col];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-    const int r = row0 + ty + i * THREADS_Y;
-    if (r < n) {
-      float sn, cs;
-      sincosf(acc[i] + p, &sn, &cs);
-      out[(size_t)r * ld + col] = s * cs;
-      out[(size_t)r * ld + k + col] = s * sn;
+
+  const long long row0 =
+      static_cast<long long>(blockIdx.x) * lanes * per_thread;
+  const int rows = static_cast<int>(
+      min(static_cast<long long>(lanes) * per_thread, n - row0));
+  const float* src = X + row0 * d;
+  if (vec) {
+    for (int e = 4 * threadIdx.x; e < rows * d; e += 4 * blockDim.x) {
+      const int r = e / d;
+      *reinterpret_cast<float4*>(xs + r * DB + (e - r * d)) =
+          __ldg(reinterpret_cast<const float4*>(src + e));
     }
+  } else {
+    for (int e = threadIdx.x; e < rows * d; e += blockDim.x) {
+      const int r = e / d;
+      xs[r * DB + (e - r * d)] = __ldg(src + e);
+    }
+  }
+  __syncthreads();
+  if (!mine) return;
+
+  const int count = l < rows ? (rows - l + lanes - 1) / lanes : 0;
+#pragma unroll 2
+  for (int i = 0; i < count; ++i) {
+    const int r = l + i * lanes;
+    float x[DB];
+    load_staged<DB>(xs + r * DB, d, x);
+    float sn, cs;
+    sincosf(project<DB>(x, f, d) + p, &sn, &cs);
+    float* o = out + (row0 + r) * ld + col;
+    o[0] = s * cs;
+    o[k] = s * sn;
   }
 }
+
+// Column tiles of at most maxt columns, of equal width kc; lanes of rows
+// fill a block; rows a thread so that the grid makes about WAVES waves of
+// full SMs (2048 threads each on 132 SMs), at least MIN_PER_THREAD, within
+// STAGE_BYTES of staged X rows.
+struct Grid {
+  int kc, ctiles, lanes, threads, per_thread, rblocks;
+};
+
+inline Grid grid_of(int n, int k, int trials, int maxt, int db) {
+  Grid g;
+  g.ctiles = (k + maxt - 1) / maxt;
+  g.kc = (k + g.ctiles - 1) / g.ctiles;
+  const int most = STAGE_BYTES / (4 * db);  // rows a block may stage
+  g.lanes = maxt / g.kc < most ? maxt / g.kc : most;
+  g.threads = g.lanes * g.kc;
+  const int resident = 2048 / ((g.threads + 31) / 32 * 32);
+  const long long target = 1LL * WAVES * 132 * (resident > 0 ? resident : 1);
+  long long per = static_cast<long long>(n) * g.ctiles * trials /
+                  (static_cast<long long>(g.lanes) * target);
+  if (per < MIN_PER_THREAD) per = MIN_PER_THREAD;
+  if (per > most / g.lanes) per = most / g.lanes;
+  g.per_thread = static_cast<int>(per);
+  const long long rows = static_cast<long long>(g.lanes) * g.per_thread;
+  g.rblocks = static_cast<int>((n + rows - 1) / rows);
+  return g;
+}
+
+template <int DB>
+cudaError_t launch(const float* X, const float* Fcat, const float* pcat,
+                   const float* scale, float* out, int n, int d, int k,
+                   int ld, cudaStream_t stream, int trials) {
+  const Grid g = grid_of(n, k, trials, max_threads<DB>(), DB);
+  const bool vec =
+      d % 4 == 0 && reinterpret_cast<std::uintptr_t>(X) % 16 == 0;
+  const dim3 grid(g.rblocks, g.ctiles, trials);
+  const size_t smem = sizeof(float) * DB * g.lanes * g.per_thread;
+  (trials > 1 ? feature_kernel<DB, true> : feature_kernel<DB, false>)
+      <<<grid, g.threads, smem, stream>>>(X, Fcat, pcat, scale, out, n, d, k,
+                                          ld, g.kc, g.lanes, g.per_thread,
+                                          vec);
+  return cudaGetLastError();
+}
+
+}  // namespace narrow
 
 // Launches the design D chooses for n rows of each of `trials` problems on
 // `stream`, out's row pitch ld >= 2k; returns cudaGetLastError().
@@ -226,11 +331,20 @@ inline cudaError_t launch(const float* X, const float* Fcat, const float* pcat,
         sgemm::operand(X, d, n), sgemm::operand(Fcat, k, k), pcat, scale, out,
         n, d, k, ld, vec);
   } else {
-    const dim3 block(TILE_K, THREADS_Y);
-    const dim3 grid((n + TILE_N - 1) / TILE_N, (k + TILE_K - 1) / TILE_K,
-                    trials);
-    (trials > 1 ? feature_kernel<true> : feature_kernel<false>)
-        <<<grid, block, 0, stream>>>(X, Fcat, pcat, scale, out, n, d, k, ld);
+    switch (narrow::bucket(d)) {
+      case 8:
+        return narrow::launch<8>(X, Fcat, pcat, scale, out, n, d, k, ld,
+                                 stream, trials);
+      case 16:
+        return narrow::launch<16>(X, Fcat, pcat, scale, out, n, d, k, ld,
+                                  stream, trials);
+      case 32:
+        return narrow::launch<32>(X, Fcat, pcat, scale, out, n, d, k, ld,
+                                  stream, trials);
+      default:
+        return narrow::launch<64>(X, Fcat, pcat, scale, out, n, d, k, ld,
+                                  stream, trials);
+    }
   }
   return cudaGetLastError();
 }

@@ -38,26 +38,47 @@
 // 256 blocks in stage 1 and 4 tiles x 64 groups in stage 2, about two
 // waves on 132 SMs each.
 //
-// Narrow (D < WIDE_D): at D = 8 the tile's 128-row side would hold 8 rows of
-// X^T dT, 1/16 of its work.  phi_bwd_partial_kernel keeps dT in shared
-// memory instead: block (group, 64-column tile) walks the row tiles group,
-// group + G, ... in order, recomputes T with D FMAs a (row, column), and
-// adds its X^T dT, dpcat and ds to its own slot; phi_bwd_reduce_kernel adds
-// the G slots in order.  At D = 8 this is 2.66x faster than the plain
-// version (PERF.md, PR 2); at D = 256 its X^T dT, one output a thread with
-// two shared loads an FMA, ran at ~5.5 TFLOP/s.  The wide design at D = 8
-// measured 0.0457 against 0.0470 ms at kin8nm but 0.0482 against 0.0380 at
-// bench (N = 8192, K = 250).
+// Narrow (D < WIDE_D): at D = 8 the tile's 128-row side would hold 8 rows
+// of X^T dT, 1/16 of its work (it measured 0.0482 against 0.0380 ms at
+// bench).  The narrow design keeps the order of every sum of the first
+// narrow design, so its gradient has that design's bits (and every float32
+// trajectory of training, sweeps and samplers stays as it was): 64-row
+// tiles, taken by row group g (G from the shapes alone) as g, g + G, ...;
+// per column, the rows of class r % 4 summed in order into one dpcat and
+// one ds; per (d, column) X^T dT one FMA chain over a tile's 64 rows, the
+// group's tiles added in order, the G slots added in order from 0; ds
+// through a fixed tree over 64-column tiles.  phi_bwd_partial_kernel,
+// compiled for D rounded up to a bucket of 8, 16, 32 or 64: block (row
+// groups, 64-column tile, trial), thread (group, column j, class q) with
+// the four classes of a column in neighbouring lanes, Fcat[:, j] in
+// registers.  A tile's g for its 16 rows is loaded while the tile's X rows
+// stage in shared memory; T and dT of the 16 rows stay in registers, and
+// each thread sums X^T dT for D / 4 entries d of its column over the 64
+// rows, the other classes' dT by warp shuffles; dpcat and ds combine by
+// shuffles and a tree in shared memory, and the block writes its groups'
+// slots.  Columns are threads only where the tile has them (a 21-column
+// last tile packs 3 groups a block), so no warp of 64 lanes sits idle at
+// K = 50, 70 or 277.  phi_bwd_reduce_kernel adds each entry's G slots with
+// 16 loads in flight a thread, and ds's slots staged in shared memory:
+// 3.2 µs at kin8nm against 17.7 for the first design's serial loads.  What
+// bounds it at D = 8 is latency and instruction throughput, not bytes:
+// the partial kernel takes 14.5 µs at kin8nm for a 4.4 µs bound, with 53
+// groups (the first design's G) of 1,108 threads each, and 2.4 µs pass
+// between the two launches.
 //
-// Registers and shared memory (ptxas, sm_90a), no spills: phi_t_kernel 121
-// and 16,896 bytes, dfcat_kernel 128 and 16,896, phi_bwd_partial_kernel 64
-// and 33,024.  Device time on an NVIDIA H100 80GB HBM3 at 700.00 W
-// (experiments/kernel_ab.py, PERF.md PR 7): 0.161 ms at the streaming block
-// (phi_t_kernel 83 us, dfcat_kernel 65, the reduce 9; the previous design
-// 0.779), 0.118 ms at (4096, 256, 500) (0.333), and 0.0476 ms at kin8nm
-// (narrow, unchanged).  Batched instances (chip_smoke.py phase 11a): 80
-// registers in phi_bwd_partial_kernel, 125 in phi_t_kernel; 50 boston
-// trials (455, 13, 70) 0.042 ms in one call against 0.81 for 50 calls.
+// Registers and shared memory (ptxas, sm_90a; 2-D / batched instances):
+// phi_t_kernel 121 / 125 and 16,896 bytes, dfcat_kernel 128 and 16,896;
+// phi_bwd_partial_kernel 64 / 64 at D <= 8 (8 bytes of spills batched),
+// 64 / 64 at 16 (108 / 116 bytes of spills: four blocks an SM measured
+// faster than two without them), 156 / 164 at 32, 216 / 224 at 64, and
+// 18,432 bytes; phi_bwd_reduce_kernel 48 / 47 and 4,096.  Device time on
+// an NVIDIA H100 80GB HBM3 at 700.00 W (experiments/kernel_ab.py, PERF.md
+// §6), against the first narrow design in the same run: 0.0200 ms at
+// kin8nm (0.0465), 0.0202 at bench (0.0380), 0.0307 for 50 boston trials
+// (0.0414), 0.0780 for 32 Bayes chains (0.1708), 0.2122 for 96 tempering
+// trials (0.4447); wide, unchanged, 0.159 ms at the streaming block
+// (phi_t_kernel 79 us, dfcat_kernel 66, the reduce 9) and 0.118 at
+// (4096, 256, 500).
 //
 // Precision: sincosf is the precise libdevice routine, no fast math, fp32
 // accumulation throughout (scfgp_tpu/models/objective.py:150-153).
@@ -69,16 +90,16 @@
 // trial's), so every sum over rows runs in the order a call on that trial
 // alone takes: trial b's gradient is bitwise the 2-D call's, with the same
 // number of launches whatever B.  The offsets are compiled in only where a
-// call has more than one trial (BATCHED: moved pointers live in registers,
-// 64 -> 80 in phi_bwd_partial_kernel, and the reduce, whose serial loads
-// bound it, took 13% longer at kin8nm with them, 18.6 -> 21.0 us, the
-// whole 2-D call 5% longer), so the 2-D call keeps its code and its time.
+// call has more than one trial (BATCHED: moved pointers live in
+// registers), so the 2-D call keeps its code and its time.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 #include "dfcat.cuh"
+#include "features.cuh"
 #include "sgemm_tile.cuh"
 
 namespace {
@@ -253,15 +274,25 @@ int wide(const float* X, const float* Fcat, const float* pcat,
 
 namespace narrow {
 
+using features::narrow::load_column;
+using features::narrow::load_staged;
+using features::narrow::project;
+
+// The tiling of the first narrow design, which fixes the order of every
+// sum over rows (so the gradient keeps its bits): 64-row tiles, taken by
+// row group g as tiles g, g + G, ...; within a tile the rows of class
+// r % 4 make one running sum of dpcat and of ds for each column, and each
+// (d, column) of X^T dT one FMA chain over the tile's 64 rows; ds goes
+// through a tree over 64-column tiles.
 constexpr int TILE_N = 64;
 constexpr int TILE_K = 64;
-constexpr int CHUNK_D = 32;
-constexpr int THREADS_Y = 4;
-constexpr int THREADS = TILE_K * THREADS_Y;
-constexpr int ROWS_PER_THREAD = TILE_N / THREADS_Y;
-constexpr int D_PER_THREAD = CHUNK_D / THREADS_Y;
+constexpr int CLASSES = 4;
+constexpr int ROWS = TILE_N / CLASSES;  // rows of a tile a thread maps
 constexpr int REDUCE_THREADS = 256;
-// Enough blocks for two waves on the H100's 132 SMs.
+constexpr int REDUCE_BATCH = 16;  // slots a reduce thread loads at once
+constexpr int DS_STAGE = 1024;    // ds slots staged at once
+// Row groups: enough for two waves of the first design's blocks on the
+// H100's 132 SMs, within the workspace budget.
 constexpr int TARGET_BLOCKS = 2 * 132;
 constexpr size_t PARTIAL_BUDGET = size_t(8) << 20;  // bytes of workspace
 
@@ -281,26 +312,48 @@ int row_groups(int n, int d, int k) {
   return g < 1 ? 1 : static_cast<int>(g);
 }
 
-// Layout: threadIdx.x walks TILE_K feature columns and threadIdx.y strides
-// the TILE_N rows of a tile; X rows and Fcat columns are staged in shared
-// memory CHUNK_D at a time, so any D works.  dT of a tile goes to shared
-// memory, and each thread then owns CHUNK_D / THREADS_Y entries (d, column)
-// of the tile's X^T dT, summed over the 64 rows in order and added to its
-// workspace slot (read-add-write by the one thread that owns it).  dpcat
-// and ds are summed per thread across the tiles and then across the block
-// in a fixed order.  blockIdx.z is the trial: its operands and its G slots
-// lie at fixed strides from the first trial's.
-template <bool BATCHED>
-__global__ void __launch_bounds__(THREADS)
+// Threads of a block (at most), blocks an SM holds at least for D <= 16
+// (64 registers a thread; wider buckets would spill), floats of the X
+// tiles a block stages, and rows of g a thread loads at once.
+constexpr int THREADS = 256;
+constexpr int MIN_BLOCKS = 4;
+constexpr int XS_FLOATS = 4096;
+constexpr int G_BATCH = 8;
+
+// Items (row group, column tile of ks valid columns) a block holds: 4
+// threads a column, at most one item a warp, and each item's X tile (64
+// rows x DB) within XS_FLOATS.
+__host__ __device__ inline int items(int ks, int db) {
+  int n = THREADS / (CLASSES * ks);
+  if (n > THREADS / 32) n = THREADS / 32;
+  if (n > XS_FLOATS / (TILE_N * db)) n = XS_FLOATS / (TILE_N * db);
+  return n;
+}
+
+// Block (row groups g0 .. g0 + items - 1, column tile y, trial): thread
+// (item, column j, class q), the four classes of a column in neighbouring
+// lanes, keeps Fcat[:, j] in registers.  For each tile of its group the
+// item's threads load g for their rows and stage the tile's X rows in
+// shared memory; then each thread recomputes T and dT for the 16 rows of
+// class q, keeping dT in registers, and sums X^T dT for entries d in
+// [q DQ, (q + 1) DQ) of column j over the tile's 64 rows in order, the
+// other classes' dT by warp shuffles.  dpcat and ds of a column combine
+// across its four lanes by shuffles, ds across the tile's columns by a tree
+// in shared memory, as the first design's block sums did.  blockIdx.z is
+// the trial.
+template <int DB, bool BATCHED>
+__global__ void __launch_bounds__(THREADS, DB <= 16 ? MIN_BLOCKS : 1)
 phi_bwd_partial_kernel(const float* __restrict__ X,
                        const float* __restrict__ Fcat,
                        const float* __restrict__ pcat,
                        const float* __restrict__ scale,
                        const float* __restrict__ g, float* __restrict__ part,
-                       size_t width, int n, int d, int k) {
-  __shared__ float xs[TILE_N][CHUNK_D + 1];
-  __shared__ float fs[CHUNK_D][TILE_K];
-  __shared__ float dts[TILE_N][TILE_K];
+                       size_t width, int n, int d, int k, int groups,
+                       bool vec) {
+  constexpr int DQ = DB / CLASSES;
+  constexpr unsigned ALL = 0xffffffffu;
+  __shared__ __align__(16) float xs_all[XS_FLOATS];
+  __shared__ float ds_cols[THREADS / 32][TILE_K];
 
   if (BATCHED) {
     const size_t z = blockIdx.z;
@@ -309,166 +362,258 @@ phi_bwd_partial_kernel(const float* __restrict__ X,
     pcat += z * k;
     scale += z;
     g += z * n * 2 * k;
-    part += z * gridDim.x * width;
+    part += z * groups * width;
   }
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * TILE_K + tx;
-  const int col0 = blockIdx.y * TILE_K;
-  const int col = col0 + tx;
+  const int y = blockIdx.y;
+  const int ks = min(TILE_K, k - y * TILE_K);
+  const int per_block = items(ks, DB);
+  const int g0 = blockIdx.x * per_block;
+  if (g0 >= groups) return;  // the whole block
+  const int tid = threadIdx.x;
+  const int item = tid / (CLASSES * ks);
+  const int u = tid - item * CLASSES * ks;
+  const int q = u % CLASSES;
+  const int col = y * TILE_K + u / CLASSES;
+  const int grp = g0 + item;
+  const bool active = item < per_block && grp < groups;  // col < k then
   const int row_tiles = (n + TILE_N - 1) / TILE_N;
   const size_t ld = 2 * static_cast<size_t>(k);
-  float* slot = part + blockIdx.x * width;
-  const float s = *scale;
-  const float p = col < k ? pcat[col] : 0.0f;
+  const int dq0 = q * DQ;
+  float* xs = xs_all + (active ? item : 0) * TILE_N * DB;
 
+  float f[DB];
+  load_column<DB>(Fcat, active ? d : 0, k, col, f);
+  const float p = active ? pcat[col] : 0.0f;
+  const float s = *scale;
+
+  float slot[DQ];
+#pragma unroll
+  for (int m = 0; m < DQ; ++m) slot[m] = 0.0f;
   float dp_acc = 0.0f;
   float ds_acc = 0.0f;
-  bool first = true;
-  for (int tile = blockIdx.x; tile < row_tiles; tile += gridDim.x) {
+  // Every warp walks as many tiles as the block's first group has (the
+  // most); a group with one fewer idles in its last step.
+  const int steps = (row_tiles - g0 + groups - 1) / groups;
+  for (int step = 0; step < steps; ++step) {
+    const int tile = grp + step * groups;
+    const bool has = active && tile < row_tiles;
     const int row0 = tile * TILE_N;
 
-    // T for this tile's rows and columns, as phi_fwd.cu computes it.
-    float t[ROWS_PER_THREAD];
+    // g of this thread's rows, row0 + 4 i + q, in flight while X stages.
+    float gc[ROWS], gs[ROWS];
+    auto load_g = [&](int i) {
+      const int r = row0 + CLASSES * i + q;
+      const bool in = has && r < n;
+      gc[i] = in ? g[static_cast<size_t>(r) * ld + col] : 0.0f;
+      gs[i] = in ? g[static_cast<size_t>(r) * ld + k + col] : 0.0f;
+    };
 #pragma unroll
-    for (int i = 0; i < ROWS_PER_THREAD; ++i) t[i] = 0.0f;
-    for (int d0 = 0; d0 < d; d0 += CHUNK_D) {
-      const int dc = min(CHUNK_D, d - d0);
-      for (int idx = tid; idx < TILE_N * CHUNK_D; idx += THREADS) {
-        const int r = idx / CHUNK_D;
-        const int j = idx % CHUNK_D;
-        const int gr = row0 + r;
-        xs[r][j] = (gr < n && j < dc) ? X[(size_t)gr * d + d0 + j] : 0.0f;
+    for (int i = 0; i < G_BATCH; ++i) load_g(i);
+    if (step > 0) __syncthreads();  // the last tile's X is read
+    if (has) {
+      const int rows = min(TILE_N, n - row0);
+      const float* src = X + static_cast<size_t>(row0) * d;
+      if (vec) {
+        for (int e = 4 * u; e < TILE_N * d; e += 4 * CLASSES * ks) {
+          const int r = e / d;
+          *reinterpret_cast<float4*>(xs + r * DB + (e - r * d)) =
+              r < rows ? __ldg(reinterpret_cast<const float4*>(src + e))
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      } else {
+        for (int e = u; e < TILE_N * d; e += CLASSES * ks) {
+          const int r = e / d;
+          xs[r * DB + (e - r * d)] = r < rows ? __ldg(src + e) : 0.0f;
+        }
       }
-      for (int idx = tid; idx < CHUNK_D * TILE_K; idx += THREADS) {
-        const int j = idx / TILE_K;
-        const int c = idx % TILE_K;
-        const int gc = col0 + c;
-        fs[j][c] = (j < dc && gc < k) ? Fcat[(size_t)(d0 + j) * k + gc] : 0.0f;
-      }
-      __syncthreads();
-      for (int j = 0; j < dc; ++j) {
-        const float f = fs[j][tx];
-#pragma unroll
-        for (int i = 0; i < ROWS_PER_THREAD; ++i)
-          t[i] = fmaf(xs[ty + i * THREADS_Y][j], f, t[i]);
-      }
-      __syncthreads();
     }
+    __syncthreads();
 
-    // dT into shared memory (zero on the ragged edge), ds and dpcat sums.
+    // dT for rows row0 + 4 i + q, as K1f computes T.
+    float dtr[ROWS];
 #pragma unroll
-    for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-      const int r = row0 + ty + i * THREADS_Y;
+    for (int i = 0; i < ROWS; ++i) {
+      if (i % G_BATCH == 0 && i > 0) {
+#pragma unroll
+        for (int j = i; j < i + G_BATCH; ++j) load_g(j);
+      }
+      const int r = CLASSES * i + q;
       float dt = 0.0f;
-      if (r < n && col < k) {
+      if (has && row0 + r < n) {
+        float x[DB];
+        load_staged<DB>(xs + r * DB, d, x);
         float sn, cs;
-        sincosf(t[i] + p, &sn, &cs);
-        const float g_cos = g[(size_t)r * ld + col];
-        const float g_sin = g[(size_t)r * ld + k + col];
+        sincosf(project<DB>(x, f, d) + p, &sn, &cs);
+        const float g_cos = gc[i];
+        const float g_sin = gs[i];
         dt = s * (g_sin * cs - g_cos * sn);
         ds_acc += g_cos * cs + g_sin * sn;
         dp_acc += dt;
       }
-      dts[ty + i * THREADS_Y][tx] = dt;
+      dtr[i] = dt;
     }
 
-    // X^T dT for this tile, one D chunk at a time, into the block's slot.
-    for (int d0 = 0; d0 < d; d0 += CHUNK_D) {
-      const int dc = min(CHUNK_D, d - d0);
-      for (int idx = tid; idx < TILE_N * CHUNK_D; idx += THREADS) {
-        const int r = idx / CHUNK_D;
-        const int j = idx % CHUNK_D;
-        const int gr = row0 + r;
-        xs[r][j] = (gr < n && j < dc) ? X[(size_t)gr * d + d0 + j] : 0.0f;
-      }
-      __syncthreads();  // also orders the dts writes above before the reads
+    // X^T dT of the tile: one FMA chain a (d, column) over rows 0..63, rows
+    // past n adding 0 * 0 as the first design did.
+    float acc[DQ];
 #pragma unroll
-      for (int jj = 0; jj < D_PER_THREAD; ++jj) {
-        const int j = ty + jj * THREADS_Y;  // one j per warp: xs broadcasts
-        if (j < dc && col < k) {
-          float acc = 0.0f;
-          for (int r = 0; r < TILE_N; ++r)
-            acc = fmaf(xs[r][j], dts[r][tx], acc);
-          float* out = slot + (size_t)(d0 + j) * k + col;
-          *out = first ? acc : *out + acc;
-        }
+    for (int m = 0; m < DQ; ++m) acc[m] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+#pragma unroll
+      for (int c = 0; c < CLASSES; ++c) {
+        const float dt = __shfl_sync(ALL, dtr[i], c, CLASSES);
+        const float* xr = xs + (CLASSES * i + c) * DB + dq0;
+#pragma unroll
+        for (int m = 0; m < DQ; ++m)
+          if (dq0 + m < d) acc[m] = fmaf(xr[m], dt, acc[m]);
       }
-      __syncthreads();
     }
-    first = false;
+    if (has) {
+#pragma unroll
+      for (int m = 0; m < DQ; ++m)
+        slot[m] = step == 0 ? acc[m] : slot[m] + acc[m];
+    }
   }
 
-  // Block sums in a fixed order: dpcat over the THREADS_Y threads of a
-  // column, ds over all threads by a fixed tree.  (The barrier matters only
-  // for D = 0, where no chunk loop ordered the dts writes.)
-  __syncthreads();
-  float* red = &dts[0][0];
-  red[tid] = dp_acc;
-  red[THREADS + tid] = ds_acc;
-  __syncthreads();
-  if (ty == 0 && col < k) {
-    float v = red[tx];
-    for (int y = 1; y < THREADS_Y; ++y) v += red[y * TILE_K + tx];
-    slot[(size_t)d * k + col] = v;
+  float* out = part + static_cast<size_t>(grp) * width;
+  if (active) {
+#pragma unroll
+    for (int m = 0; m < DQ; ++m)
+      if (dq0 + m < d) out[static_cast<size_t>(dq0 + m) * k + col] = slot[m];
   }
-  float* red_s = red + THREADS;
-  for (int stride = THREADS / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) red_s[tid] += red_s[tid + stride];
-    __syncthreads();
+  // dpcat over the four classes in order; ds by the first two levels of the
+  // first design's tree over (class, column): (c0 + c2) + (c1 + c3).
+  const float dp1 = __shfl_sync(ALL, dp_acc, 1, CLASSES);
+  const float dp2 = __shfl_sync(ALL, dp_acc, 2, CLASSES);
+  const float dp3 = __shfl_sync(ALL, dp_acc, 3, CLASSES);
+  const float ds1 = __shfl_sync(ALL, ds_acc, 1, CLASSES);
+  const float ds2 = __shfl_sync(ALL, ds_acc, 2, CLASSES);
+  const float ds3 = __shfl_sync(ALL, ds_acc, 3, CLASSES);
+  for (int e = tid; e < per_block * TILE_K; e += blockDim.x)
+    ds_cols[e / TILE_K][e % TILE_K] = 0.0f;
+  __syncthreads();
+  if (active && q == 0) {
+    out[static_cast<size_t>(d) * k + col] = ((dp_acc + dp1) + dp2) + dp3;
+    ds_cols[item][col - y * TILE_K] = (ds_acc + ds2) + (ds1 + ds3);
   }
-  if (tid == 0) slot[(size_t)d * k + k + blockIdx.y] = red_s[0];
+  __syncthreads();
+  // Then the tree over the tile's 64 columns (zeros past k), a warp an item.
+  const int lane = tid % 32;
+  for (int w = tid / 32; w < per_block; w += blockDim.x / 32) {
+    float v = ds_cols[w][lane] + ds_cols[w][lane + 32];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(ALL, v, off);
+    if (lane == 0 && g0 + w < groups)
+      part[static_cast<size_t>(g0 + w) * width + static_cast<size_t>(d) * k +
+           k + y] = v;
+  }
 }
 
-// out[j] = sum over row groups of part[group][j] for the dFcat and dpcat
-// entries; the last output adds every group's per-column-tile ds as well.
+// out[j] = sum over row groups g = 0..G-1, in order from 0, of slot g's
+// entry j for the dFcat and dpcat entries, a thread an entry with
+// REDUCE_BATCH loads in flight; the last block adds every group's ds per
+// column tile, in order, staged in shared memory and added by one thread.
 // blockIdx.y is the trial.
 template <bool BATCHED>
 __global__ void __launch_bounds__(REDUCE_THREADS)
 phi_bwd_reduce_kernel(const float* __restrict__ part, float* __restrict__ out,
                       int groups, size_t width, size_t n_dk_k, int ktiles) {
-  const size_t j = (size_t)blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  __shared__ float staged[DS_STAGE];
   if (BATCHED) {
     const size_t z = blockIdx.y;
     part += z * groups * width;
     out += z * (n_dk_k + 1);
   }
-  if (j < n_dk_k) {
+  if (blockIdx.x + 1 < gridDim.x) {
+    const size_t j = static_cast<size_t>(blockIdx.x) * REDUCE_THREADS +
+                     threadIdx.x;
+    if (j >= n_dk_k) return;
     float v = 0.0f;
-    for (int grp = 0; grp < groups; ++grp) v += part[grp * width + j];
+    for (int g0 = 0; g0 < groups; g0 += REDUCE_BATCH) {
+      float b[REDUCE_BATCH];
+#pragma unroll
+      for (int m = 0; m < REDUCE_BATCH; ++m)
+        b[m] = g0 + m < groups ? part[(g0 + m) * width + j] : 0.0f;
+#pragma unroll
+      for (int m = 0; m < REDUCE_BATCH; ++m)
+        if (g0 + m < groups) v += b[m];
+    }
     out[j] = v;
-  } else if (j == n_dk_k) {
-    float v = 0.0f;
-    for (int grp = 0; grp < groups; ++grp)
-      for (int y = 0; y < ktiles; ++y) v += part[grp * width + n_dk_k + y];
-    out[j] = v;
+    return;
   }
+  const int total = groups * ktiles;
+  float v = 0.0f;
+  for (int base = 0; base < total; base += DS_STAGE) {
+    const int count = min(DS_STAGE, total - base);
+    for (int e = threadIdx.x; e < count; e += REDUCE_THREADS) {
+      const int slot = (base + e) / ktiles;
+      staged[e] = part[slot * width + n_dk_k + (base + e - slot * ktiles)];
+    }
+    __syncthreads();
+    if (threadIdx.x == 0)
+      for (int e = 0; e < count; ++e) v += staged[e];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) out[n_dk_k] = v;
 }
 
 size_t workspace(int n, int d, int k) {
   return static_cast<size_t>(row_groups(n, d, k)) * slot_width(d, k);
 }
 
+template <int DB>
 int launch(const float* X, const float* Fcat, const float* pcat,
            const float* scale, const float* g, float* part, float* out,
            int trials, int n, int d, int k, cudaStream_t st) {
   const int groups = row_groups(n, d, k);
+  const int ktiles = col_tiles(k);
   const size_t width = slot_width(d, k);
-  const dim3 block(TILE_K, THREADS_Y);
-  const dim3 grid(groups, col_tiles(k), trials);
-  (trials > 1 ? phi_bwd_partial_kernel<true> : phi_bwd_partial_kernel<false>)
-      <<<grid, block, 0, st>>>(X, Fcat, pcat, scale, g, part, width, n, d, k);
+  // The widest column tile and the last one fix the block and the grid.
+  int threads = 32, blocks = 1;
+  for (const int ks : {k < TILE_K ? k : TILE_K, k - (ktiles - 1) * TILE_K}) {
+    const int per_block = items(ks, DB);
+    const int used = (per_block * CLASSES * ks + 31) / 32 * 32;
+    threads = used > threads ? used : threads;
+    const int need = (groups + per_block - 1) / per_block;
+    blocks = need > blocks ? need : blocks;
+  }
+  const bool vec =
+      d % 4 == 0 && reinterpret_cast<std::uintptr_t>(X) % 16 == 0;
+  const dim3 grid(blocks, ktiles, trials);
+  (trials > 1 ? phi_bwd_partial_kernel<DB, true>
+              : phi_bwd_partial_kernel<DB, false>)<<<grid, threads, 0, st>>>(
+      X, Fcat, pcat, scale, g, part, width, n, d, k, groups, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t n_dk_k = static_cast<size_t>(d) * k + k;
-  const dim3 reduce_blocks(static_cast<unsigned>(
-                               (n_dk_k + 1 + REDUCE_THREADS - 1) /
-                               REDUCE_THREADS),
-                           trials);
+  const dim3 reduce_blocks(
+      static_cast<unsigned>((n_dk_k + REDUCE_THREADS - 1) / REDUCE_THREADS +
+                            1),
+      trials);
   (trials > 1 ? phi_bwd_reduce_kernel<true> : phi_bwd_reduce_kernel<false>)
-      <<<reduce_blocks, REDUCE_THREADS, 0, st>>>(
-      part, out, groups, width, n_dk_k, col_tiles(k));
+      <<<reduce_blocks, REDUCE_THREADS, 0, st>>>(part, out, groups, width,
+                                                 n_dk_k, ktiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch(const float* X, const float* Fcat, const float* pcat,
+           const float* scale, const float* g, float* part, float* out,
+           int trials, int n, int d, int k, cudaStream_t st) {
+  switch (features::narrow::bucket(d)) {
+    case 8:
+      return launch<8>(X, Fcat, pcat, scale, g, part, out, trials, n, d, k,
+                       st);
+    case 16:
+      return launch<16>(X, Fcat, pcat, scale, g, part, out, trials, n, d, k,
+                        st);
+    case 32:
+      return launch<32>(X, Fcat, pcat, scale, g, part, out, trials, n, d, k,
+                        st);
+    default:
+      return launch<64>(X, Fcat, pcat, scale, g, part, out, trials, n, d, k,
+                        st);
+  }
 }
 
 }  // namespace narrow

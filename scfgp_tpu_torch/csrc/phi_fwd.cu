@@ -23,20 +23,23 @@
 // Two designs, chosen by D alone (features.cuh, which K2f shares): for
 // D >= 64 T by the 128 x 128 register-blocked tile of sgemm_tile.cuh with a
 // sincosf epilogue (feature_tile_kernel, 256 blocks at the streaming
-// block); for D < 64 a 64 x 64 block with the projection in shared memory
-// (feature_kernel).  Both give the same bits.
+// block); for D < 64 a thread a (row lane, column) with its Fcat column in
+// registers over X rows staged in shared memory, D a compile-time bucket
+// (feature_kernel).  Both give the same bits, and the narrow one the bits
+// of the first narrow design it replaced.
 //
-// Registers and shared memory (ptxas, sm_90a), no spills:
-// feature_tile_kernel 119 and 16,896 bytes, feature_kernel 48 and 16,640
-// (each with the 32-byte stack frame of sincosf's slow path); their
-// batched instances 126 and 60.  Device time on an NVIDIA H100 80GB HBM3
-// at 700.00 W (experiments/kernel_ab.py, PERF.md §6): 0.068 ms at the
-// streaming block (~32 TFLOP/s; the previous one-design kernel, now the
-// narrow one, 0.178), 0.040 ms at (4096, 256, 500) (0.094), 0.0124 ms at
-// kin8nm and bench, where the wide design took 0.029-0.031.  Batched
-// (chip_smoke.py phase 11a): 50 boston trials (455, 13, 70) 0.019 ms in
-// one launch against 0.35 for 50 launches; at kin8nm and D = 256, where a
-// trial fills the card, about B times one trial's time.
+// Registers and shared memory (ptxas, sm_90a; 2-D / batched instances):
+// feature_tile_kernel 119 / 126 and 16,896 bytes, no spills;
+// feature_kernel 40 / 40 at D <= 8, 58 / 62 at 16, 80 / 95 at 32 (12 bytes
+// of spills in the 2-D instance), 106 / 110 at 64, and at most 16 KB of
+// staged X rows (each instance with sincosf's 32-byte stack frame where
+// ptxas keeps it).  Device time on an NVIDIA H100 80GB HBM3 at 700.00 W
+// (experiments/kernel_ab.py, PERF.md §6): 0.068-0.070 ms at the streaming
+// block (~32 TFLOP/s), 0.040 ms at (4096, 256, 500); narrow, 0.0107 ms at
+// kin8nm and 0.0111 at bench (the first narrow design 0.0126 and 0.0125
+// in the same run); batched, one launch for 50 boston trials (455, 13, 70)
+// 0.0155 ms, for 32 Bayes chains (6553, 8, 50) 0.0431, for 96 tempering
+// trials 0.1437 (the first design 0.0188, 0.0635, 0.1767).
 //
 // Trials: the batched entry below launches B problems of one shape at once
 // (features.cuh: blockIdx.z is the trial).

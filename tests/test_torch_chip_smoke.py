@@ -38,6 +38,38 @@ def test_kernels_line_reports_the_forward_kernels_at_the_streaming_block(
     assert "kin8nm" in beside and all(at in rows for at in beside)
 
 
+@pytest.mark.parametrize("name", ["batch-boston", "batch-bayes",
+                                  "batch-tempered"])
+def test_kernel_ab_times_the_batched_shapes_of_phase_11a(name):
+    """kernel_ab's batched shapes are phase 11a's (B, N, D, K), and the
+    kernels line reports each of them beside its first shape."""
+    batch = {"batch-" + row[0]: tuple(row[1:])
+             for row in chip_smoke.BATCH_SHAPES}
+    assert kernel_ab.BATCH_SHAPES[name] == batch[name]
+    for kernel in ("phi_fwd", "phi_bwd"):
+        assert name in chip_smoke.KERNELS_LINE_SHAPES[kernel]
+
+
+def test_kernel_ab_digest_tells_bitwise_equal_outputs():
+    """Two trees' outputs compare by digest: equal bits give equal digests,
+    one ulp or the sign of a zero gives another."""
+    a = torch.tensor([[1.0, 0.0], [2.5, -3.0]])
+    b = a.clone()
+    b[0, 0] = torch.nextafter(b[0, 0], torch.tensor(2.0))
+    z = a.clone()
+    z[0, 1] = -0.0
+    assert kernel_ab.digest([a, a[0]]) == kernel_ab.digest([a.clone(),
+                                                            a[0].clone()])
+    assert len({kernel_ab.digest([t]) for t in (a, b, z)}) == 3
+
+
+def test_kernel_ab_batched_inputs_have_a_trial_axis():
+    t = kernel_ab.inputs(5, 3, 4, "cpu", trials=2)
+    assert [tuple(t[key].shape) for key in ("X", "F", "p", "s", "g")] == [
+        (2, 5, 3), (2, 3, 4), (2, 4), (2,), (2, 5, 8)]
+    assert torch.equal(t["X"], kernel_ab.inputs(5, 3, 4, "cpu", 2)["X"])
+
+
 def test_kernel_ab_times_the_streaming_block_and_the_kernels_line_shapes():
     assert kernel_ab.SHAPES["block"] == BLOCK
     assert set(kernel_ab.KERNELS) == {"phi_fwd", "phi_bwd", "gram_fwd",

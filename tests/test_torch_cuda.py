@@ -550,3 +550,73 @@ def test_fit_bayes_on_card_launches_once_per_batched_gradient(cuda_device):
     assert bool(torch.isfinite(m.thetas).all())
     mu, sd = m.predict_bayes(Xv[1200:])
     assert np.isfinite(mu).all() and (sd > 0).all()
+
+
+# The narrow designs of K1f and K1b (D < 64): D from 1 to 63 over the
+# compiled buckets (8, 16, 32, 64), K where a column tile is ragged (37, 50,
+# 70) or spans 64-column tiles (277), N from one row to the kin8nm
+# training set; one trial (the 2-D call) and three.
+NARROW = [(n, d, k, b) for d in (1, 3, 8, 13, 63) for k in (37, 50, 70, 277)
+          for n in (1, 63, 777, 6553) for b in (1, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k,b", NARROW)
+def test_narrow_kernels_match_plain_and_their_2d_calls(cuda_device, n, d, k,
+                                                       b):
+    """K1f within kernel_tolerance of the plain map and K1b within
+    bwd_tolerance of phi_bwd_ref, one launch a call, bitwise repeatable;
+    with three trials, each trial bitwise its own 2-D call."""
+    rng = np.random.RandomState(n + d + k + b)
+    lead = (b,) if b > 1 else ()
+    X, F, p, g = (torch.as_tensor(a, dtype=torch.float32, device=cuda_device)
+                  for a in (rng.rand(*lead, n, d), 3.0 * rng.randn(*lead, d, k),
+                            rng.uniform(0, 2 * np.pi, (*lead, k)),
+                            rng.randn(*lead, n, 2 * k)))
+    s = torch.as_tensor(rng.uniform(0.5, 1.5, b) if b > 1 else 0.7,
+                        dtype=torch.float32, device=cuda_device)
+    before = (fourier_features_cuda.launches,
+              fourier_features_bwd_cuda.launches)
+    Phi, Phi2 = (fourier_features_cuda(X, F, p, s) for _ in range(2))
+    grads, grads2 = (fourier_features_bwd_cuda(X, F, p, s, g)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert (fourier_features_cuda.launches,
+            fourier_features_bwd_cuda.launches) == (before[0] + 2,
+                                                    before[1] + 2)
+    assert torch.equal(Phi, Phi2)
+    assert all(torch.equal(a, c) for a, c in zip(grads, grads2))
+    assert Phi.shape == (*lead, n, 2 * k)
+    assert [tuple(t.shape) for t in grads] == [(*lead, d, k), (*lead, k), lead]
+    trials = [tuple(t[i] for t in (X, F, p, s, g)) for i in range(b)] \
+        if b > 1 else [(X, F, p, s, g)]
+    for i, (Xi, Fi, pi, si, gi) in enumerate(trials):
+        phi = Phi[i] if b > 1 else Phi
+        grad = [t[i] for t in grads] if b > 1 else list(grads)
+        if b > 1:
+            assert torch.equal(phi, fourier_features_cuda(Xi, Fi, pi, si))
+            assert all(torch.equal(a, c) for a, c in zip(
+                grad, fourier_features_bwd_cuda(Xi, Fi, pi, si, gi)))
+        err = float((phi - fourier_features_ref(Xi, Fi, pi, si)).abs().max())
+        assert err <= kernel_tolerance(Xi, Fi, pi, si)
+        for a, r, tol in zip(grad, phi_bwd_ref(Xi, Fi, pi, si, gi),
+                             bwd_tolerance(Xi, Fi, pi, si, gi)):
+            assert float((a - r).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [63, 6553])
+@pytest.mark.parametrize("k", [37, 50, 70, 277])
+def test_gram_forward_at_d8_matches_plain(cuda_device, n, k):
+    """K2f's features at D = 8 come from the narrow K1f design: K2f within
+    k2f_tolerance of sufficient_stats_ref, one launch a call, bitwise
+    repeatable."""
+    X, y, w, F, p, s, _, _ = _k2_inputs(n, 8, k, False, cuda_device, seed=k)
+    before = sufficient_stats_cuda.launches
+    got, again = (sufficient_stats_cuda(X, y, w, F, p, s) for _ in range(2))
+    torch.cuda.synchronize()
+    assert sufficient_stats_cuda.launches == before + 2
+    for a, b, r, t in zip(got, again, sufficient_stats_ref(X, y, w, F, p, s),
+                          k2f_tolerance(X, F, p, s, y, w)):
+        assert torch.equal(a, b)
+        assert float((a - r).abs().max()) <= t
