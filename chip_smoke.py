@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving, training, streaming, Cholesky, sweep and
-Bayes paths on one card.
+"""Drive the PyTorch port's serving, training, streaming, Cholesky, sweep,
+Bayes and command-line paths on one card.
 
     python3 chip_smoke.py
 
@@ -86,21 +86,34 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    persisted adaptation; 12d static NUTS, VI and minibatch SGLD at cut
    budgets, below the MAP arm's NMSE; 12e one diverging chain inside a
    batch, counted while the others move.  K1b must launch once per batched
-   gradient.
+   gradient;
+13. the command line, the served predictor and the helpers: 13a
+   ``run.main`` at the kin8nm protocol's width with --fused, its metrics
+   bitwise those of the direct ``fit_fast``, then --ensemble 4 and --bayes
+   hmc at the JAX CLI test's budget, and ``python -m scfgp_tpu_torch
+   --config`` as a subprocess; 13b phase 4's model exported
+   (``export_predictor``, K1f as the registered operator) at 256 rows,
+   reloaded (``ServedPredictor``) and held against ``predict`` at 1, 17
+   and 256 rows, one K1f launch a call, both times, the blob's size, and a
+   CUDA blob refused on the CPU; 13c the native Box-Cox library built and
+   loaded on this host, its lambdas on kin8nm's training inputs against
+   SciPy's, ``set_data``'s seconds with each; 13d the exact GP on the
+   boston surrogate in float64 within 1.25x of the floor; 13e
+   ``graft_entry.entry()``.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
 and GEMM routes, the crossover, the posterior through K3, and each path of
-phases 11 and 12) and read just after; every training phase must launch K1f and
-K1b, the streaming kernel
-route K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f
-nor K2b, the crossover K4 and K3, the posterior K3, the Bayes paths K1f
-and K1b but no K2 kernel; the serving, training, streaming and Bayes
-paths must launch neither K3 nor K4 (their posterior stays on torch's
-pair).  The line before the last is a JSON
-object with each kernel's launches, error and times, its bound (the
-larger of its FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s,
-from this run's shapes) and the time of one library call for the same
+phases 11, 12 and 13) and read just after; every training phase must
+launch K1f and K1b, the streaming kernel route K1f, K1b, K2f and K2b, its
+GEMM route K1f and K1b but neither K2f nor K2b, the crossover K4 and K3,
+the posterior K3, the Bayes paths K1f and K1b but no K2 kernel; the
+serving, training, streaming and Bayes paths must launch neither K3 nor
+K4 (their posterior stays on torch's pair), and a served request exactly
+one K1f and nothing else.  The line before the last is a JSON object with
+each kernel's launches, error and times, its bound (the larger of its
+FP32 operations at 67 TFLOP/s and its bytes at 3.35 TB/s, from this
+run's shapes) and the time of one library call for the same
 function where there is one, at the shape KERNELS_LINE_SHAPES names first
 (``at``; K1f, K1b, K2f and K2b at one streaming block) and the same
 readings at the others (``beside``); the last line is
@@ -1463,6 +1476,256 @@ def bayes_phase(launches, workdir):
     say("bayes", seconds=time.perf_counter() - t)
 
 
+# Phase 13a: the command line at the kin8nm protocol's width (sparsity -1,
+# nfeats 269), the TrainConfig defaults otherwise; --ensemble and --bayes at
+# the JAX CLI test's budget (tests/test_utils.py:184-193).
+CLI_ARGS = ["--dataset", "kin8nm", "--sparsity", "-1", "--nfeats", "269",
+            "--max-iter", "200", "--seed", str(SEED)]
+CLI_BAYES = ["--bayes", "hmc", "--chains", "2", "--samples", "10",
+             "--warmup", "20"]
+# 13b: the exported batch and the request batches held against predict.
+SERVE_BATCH = 256
+# 13d: tests/test_baselines.py:20-33, the exact GP within 1.25x of the
+# boston surrogate's floor on the seed-1 split, 300 adam steps.
+EXACT_GP_PIN = 1.25
+
+
+def cli_phase(launches, workdir):
+    """13a: ``python -m scfgp_tpu_torch --config`` as a subprocess while
+    ``run.main`` runs in-process (``cli_runs_phase``)."""
+    from scfgp_tpu_torch.run import main as cli
+    # The module entry runs beside the in-process runs: most of its time is
+    # the new process's start on the card.
+    cfg = os.path.join(workdir, "cfg.json")
+    with open(cfg, "w") as f:
+        json.dump({"dataset": "co2", "model": {"sparsity": 2, "nfeats": 4,
+                                               "seed": SEED},
+                   "train": {"max_iter": 20, "fused": True}}, f)
+    t_module = time.perf_counter()
+    module = subprocess.Popen(
+        [sys.executable, "-m", "scfgp_tpu_torch", "--config", cfg], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        cli_runs_phase(launches, workdir, cli)
+        out, err = module.communicate(timeout=300)
+    finally:
+        module.kill()
+        module.wait()
+    check(module.returncode == 0, f"python -m scfgp_tpu_torch failed:\n"
+          f"{out[-2000:]}{err[-4000:]}")
+    line = json.loads(out.strip().splitlines()[-1])
+    say("cli_module", seconds=time.perf_counter() - t_module, result=line)
+    check(np.isfinite(line["metrics"]["NMSE"]), "python -m: NMSE not finite")
+
+
+def cli_runs_phase(launches, workdir, cli):
+    """13a in-process: --fused against the direct ``fit_fast``, then
+    --ensemble and --bayes."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.config import TrainConfig
+    from scfgp_tpu_torch.data.datasets import load_kin8nm
+    t = time.perf_counter()
+    launches.start()
+    res = cli([*CLI_ARGS, "--fused", "--out", os.path.join(workdir, "cli")])
+    counts = launches.read("cli_fit_fast")
+    Xt, yt, Xv, yv, _ = load_kin8nm(seed=SEED)
+    kw = TrainConfig(max_iter=200).as_optimize_kwargs()
+    for key in ("nbatches", "batchsize"):
+        kw.pop(key)
+    direct = SCFGP(**KIN8NM_MODEL, seed=SEED, device="cuda")
+    direct.fit_fast(Xt, yt, Xv, yv, **kw)
+    metrics = {k: float(direct.evals[k][1][direct.min_obj_ind])
+               for k in ("MAE", "NMSE", "RMSE", "MNLP", "SCORE")}
+    say("cli_fit_fast", seconds=time.perf_counter() - t,
+        metrics=res["metrics"], direct_metrics=metrics,
+        bitwise=res["metrics"] == metrics,
+        checkpoint=os.path.exists(res["checkpoint"]), launches=counts)
+    check(res["metrics"] == metrics, "CLI: metrics differ from the direct "
+          f"fit_fast: {res['metrics']} vs {metrics}")
+    check(os.path.exists(res["checkpoint"]), "CLI: no checkpoint written")
+
+    t = time.perf_counter()
+    launches.start()
+    ens = cli([*CLI_ARGS, "--ensemble", "4"])
+    counts = launches.read("cli_ensemble")
+    say("cli_ensemble", seconds=time.perf_counter() - t,
+        metrics=ens["metrics"], launches=counts)
+    t = time.perf_counter()
+    launches.start()
+    bay = cli([*CLI_ARGS, *CLI_BAYES])
+    counts = launches.read("cli_bayes", none=BAYES_NONE)
+    say("cli_bayes", seconds=time.perf_counter() - t,
+        metrics=bay["metrics"], bayes=bay["bayes"], launches=counts)
+    check(np.isfinite(list(ens["metrics"].values())
+                      + list(bay["metrics"].values())).all()
+          and bay["bayes"]["draws"] > 0, "CLI: ensemble or bayes failed")
+
+
+def served_phase(launches):
+    """13b: phase 4's served kin8nm model exported at SERVE_BATCH rows,
+    reloaded, and held against ``predict`` at 1, 17 and 256 rows; the
+    time of a K1f call through the registered operator and through its
+    wrapper at the full split."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_kin8nm
+    from scfgp_tpu_torch.models.params import (derive_frequencies,
+                                               feature_scale)
+    from scfgp_tpu_torch.ops.phi import fourier_features_cuda
+    from scfgp_tpu_torch.utils.serving import (ServedPredictor,
+                                               export_predictor)
+    _, _, Xv, _, _ = load_kin8nm(prop=0.8, seed=0)
+    m = SCFGP(device="cuda").load(CKPT)
+    t = time.perf_counter()
+    blob = export_predictor(m, SERVE_BATCH)
+    t_export = time.perf_counter() - t
+    t = time.perf_counter()
+    served = ServedPredictor(blob, device="cuda")
+    t_load = time.perf_counter() - t
+    rows, start = {}, 0
+    for b in (1, 17, SERVE_BATCH):
+        Xb = Xv[start:start + b]
+        start += b
+        launches.start()
+        got = served(Xb)
+        counts = launches.read(f"served_{b}", need=("phi_fwd",),
+                               none=CHOL_KERNELS + ("phi_bwd", "gram_fwd",
+                                                    "gram_bwd"))
+        check(counts["phi_fwd"] == 1, f"served {b} rows: K1f launched "
+              f"{counts['phi_fwd']} times")
+        ref = m.predict(Xb)
+        e_mu = float(np.abs(got[0] - ref[0]).max() / np.abs(ref[0]).max())
+        e_sd = float(np.abs((got[1] - ref[1]) / ref[1]).max())
+        rows[b] = dict(
+            mu_rel_err=e_mu, std_rel_err=e_sd,
+            bitwise=bool(np.array_equal(got[0], ref[0])
+                         and np.array_equal(got[1], ref[1])),
+            served_ms=median_ms(lambda: served(Xb), reps=7, inner=5),
+            predict_ms=median_ms(lambda: m.predict(Xb), reps=7, inner=5))
+        check(got[0].shape == ref[0].shape and e_mu <= PRED_TOL
+              and e_sd <= PRED_TOL, f"served {b} rows differ from predict: "
+              f"{e_mu}, {e_sd}")
+    try:
+        ServedPredictor(blob, device="cpu")
+        refused = False
+    except ValueError:
+        refused = True
+    # What the registered operator adds to a K1f call, at the served width.
+    with torch.inference_mode():
+        fr = derive_frequencies(m.params)
+        args = (m._scale_X(Xv), fr.Fcat, fr.pcat, feature_scale(m.params))
+        op_ms = median_ms(lambda: torch.ops.scfgp_tpu_torch.phi_fwd(*args))
+        wrapper_ms = median_ms(lambda: fourier_features_cuda(*args))
+    say("served", batch=SERVE_BATCH, blob_bytes=len(blob),
+        export_s=t_export, load_s=t_load, rows=rows, tol=PRED_TOL,
+        cpu_load_refused=refused, op_call_ms=op_ms,
+        wrapper_call_ms=wrapper_ms)
+    check(refused, "a CUDA blob loaded on the CPU did not raise")
+
+
+def native_phase(launches):
+    """13c: the native Box-Cox fitter built and loaded on this host; its
+    lambdas on kin8nm's training inputs at or below the SciPy objective
+    (tests/test_scaler.py:117-130); set_data's seconds with each fit."""
+    from scipy.stats import skew
+
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data import native
+    from scfgp_tpu_torch.data.datasets import load_kin8nm
+    from scfgp_tpu_torch.data.scaler import Scaler, _fit_boxcox_lambdas
+    so = native.build()
+    check(native.get_lib() is not None, f"native library {so} did not load")
+    Xt, yt, _, _, _ = load_kin8nm(prop=0.8, seed=0)
+    u = (Xt - Xt.min(0)) / (Xt.max(0) - Xt.min(0))
+    lam_n = native.fit_boxcox_lambdas_native(u)
+    lam_s = _fit_boxcox_lambdas(u)
+
+    def obj(col, lm):
+        return float(skew((np.sign(col) * np.abs(col) ** lm - 1) / lm,
+                          bias=False) ** 2)
+
+    objs = [(obj(u[:, j], lam_n[j]), obj(u[:, j], lam_s[j]))
+            for j in range(u.shape[1])]
+    m = SCFGP(device="cuda").load(CKPT)
+
+    def set_data(is_native):
+        m.X_scaler = Scaler(m.X_scaler.algo, native=is_native)
+        m.y_scaler = Scaler(m.y_scaler.algo, native=is_native)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m.set_data(Xt, yt)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    launches.start()
+    times = {True: [], False: []}
+    for turn in range(4):  # native, scipy, scipy, native, ...
+        for is_native in ((True, False) if turn % 2 == 0
+                          else (False, True)):
+            times[is_native].append(set_data(is_native))
+    counts = launches.read("set_data_native", need=("phi_fwd",))
+    say("native", library=so.name,
+        openmp=so == native.library_path(native.CXX_FLAGS),
+        lambdas=lam_n.tolist(),
+        scipy_lambdas=lam_s.tolist(), objective_native_scipy=objs,
+        set_data_native_s=times[True], set_data_scipy_s=times[False],
+        set_data_native_median_s=statistics.median(times[True][1:]),
+        set_data_scipy_median_s=statistics.median(times[False][1:]),
+        launches=counts)
+    check(all(o_n <= o_s + 1e-6 for o_n, o_s in objs),
+          f"native lambdas above the SciPy objective: {objs}")
+
+
+def exact_gp_phase():
+    """13d: the exact GP on the boston surrogate's seed-1 split in float64
+    on the card, within EXACT_GP_PIN of the floor."""
+    from scfgp_tpu_torch.baselines import ExactGP
+    from scfgp_tpu_torch.data.datasets import load_boston, surrogate_floor
+    Xt, yt, Xv, yv, meta = load_boston(seed=1)
+    floor = surrogate_floor("boston_housing", Xv, yv)["NMSE"]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    gp = ExactGP(steps=300, device="cuda").fit(Xt, yt)
+    mu, std = gp.predict(Xv)
+    t_fit = time.perf_counter() - t
+    nmse = float(np.mean((mu - yv) ** 2) / np.var(yv))
+    say("exact_gp", source=meta["source"], rows=len(Xt), fit_s=t_fit,
+        dtype=str(gp.params.log_ls.dtype), device=str(gp.params.log_ls.device),
+        NMSE=nmse, floor_NMSE=floor, nmse_over_floor=nmse / floor,
+        pin=EXACT_GP_PIN, final_nlml=float(gp.nlml_history[-1]))
+    check(gp.params.log_ls.dtype == torch.float64
+          and gp.params.log_ls.is_cuda, "exact GP: not float64 on the card")
+    check(np.all(std > 0) and nmse < EXACT_GP_PIN * floor,
+          f"exact GP: NMSE {nmse} not within {EXACT_GP_PIN} x {floor}")
+
+
+def entry_phase(launches):
+    """13e: the port's ``entry()`` forward objective on the card."""
+    from scfgp_tpu_torch.graft_entry import entry
+    fn, args = entry()
+    launches.start()
+    cost, alpha = fn(*args)
+    torch.cuda.synchronize()
+    counts = launches.read("entry", need=("phi_fwd",))
+    say("entry", cost=float(cost), alpha_shape=list(alpha.shape),
+        launches=counts)
+    check(math.isfinite(float(cost)) and bool(torch.isfinite(alpha).all()),
+          "entry(): cost or alpha not finite")
+
+
+def cli_serving_phase(launches):
+    """Phase 13: the command line, the served predictor, the native
+    helpers, the exact GP and ``entry()``."""
+    t = time.perf_counter()
+    workdir = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    cli_phase(launches, workdir.name)
+    workdir.cleanup()
+    served_phase(launches)
+    native_phase(launches)
+    exact_gp_phase()
+    entry_phase(launches)
+    say("cli_serving", seconds=time.perf_counter() - t)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1972,6 +2235,9 @@ def main():
     bayes_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_bayes_")
     bayes_phase(launches, bayes_dir.name)
     bayes_dir.cleanup()
+
+    # 13. the command line, the served predictor and the helpers ---------
+    cli_serving_phase(launches)
 
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",

@@ -141,8 +141,15 @@ def _numeric_block(rows, path, ncols=None):
 
 
 def _numeric_table(path: str) -> np.ndarray:
-    """All-numeric table file -> float64 array, by the Python sniffing path
-    (the JAX package's native parser is a fast path to the same result)."""
+    """All-numeric table file -> float64 array.  Fast path: the native
+    parser (``data/native.py``), as ``scfgp_tpu/data/datasets.py:158-170``;
+    a file it cannot prove clean (categorical columns, ragged rows), or no
+    library, falls back to the Python sniffing path, which raises the
+    schema-specific errors."""
+    from .native import parse_numeric_table_native
+    arr = parse_numeric_table_native(path)
+    if arr is not None:
+        return arr
     return _numeric_block(_parse_table(path), path)
 
 

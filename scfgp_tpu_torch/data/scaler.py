@@ -15,8 +15,9 @@ host-side NumPy/SciPy in float64; the transforms are torch functions of the
 fitted state and run on the device of their input (``Scaler.to`` moves the
 state).  ``compat_reference=True`` reproduces the reference's ``inv-normal``
 backward transform, which is not the inverse of its forward
-(``Scaler.py:106`` vs ``:125``).  The C++ Box-Cox fitter of the JAX package
-(``native=True``) is not ported yet and raises.
+(``Scaler.py:106`` vs ``:125``).  ``native=True`` fits the Box-Cox lambdas
+with the C++ fitter (``data/native.py``), and with SciPy where that library
+cannot be built, as in the JAX package (``scfgp_tpu/data/scaler.py:126-129``).
 """
 
 from __future__ import annotations
@@ -87,10 +88,6 @@ class Scaler:
         if algo not in ALGOS:
             raise ValueError(f"Invalid scaling algorithm {self.algo!r}")
         self.algo = algo
-        if self.native:
-            raise NotImplementedError(
-                "Scaler(native=True): the C++ Box-Cox fitter is not ported "
-                "to scfgp_tpu_torch yet; use the SciPy fit (native=False)")
 
     def to(self, device) -> "Scaler":
         """Move the fitted state to ``device``; returns self."""
@@ -117,7 +114,11 @@ class Scaler:
             s["min"] = tX.min(axis=0)
             s["max"] = tX.max(axis=0)
             u = (tX - s["min"]) / (s["max"] - s["min"])
-            s["boxcox"] = _fit_boxcox_lambdas(u)
+            lams = None
+            if self.native:
+                from .native import fit_boxcox_lambdas_native
+                lams = fit_boxcox_lambdas_native(u)
+            s["boxcox"] = lams if lams is not None else _fit_boxcox_lambdas(u)
             bu = _boxcox(u, s["boxcox"][None, :])
             s["mu"] = bu.mean(axis=0)
             s["std"] = bu.std(axis=0)

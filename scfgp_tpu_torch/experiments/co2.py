@@ -2,16 +2,19 @@
 
 Port of ``experiments/co2.py``, which mirrors ``reference:
 experiments/co2/CO2_1d_regression.py``: S=100, m=50, adamax lr 0.05 beta1
-0.8, obj 'cost', max_iter 1000 (lines 14-35) by the host loop ``fit``.
-The JAX driver's posterior-band rendering (``Visualizer``) is not ported
-(ROADMAP.md Queue 1 item 9).  Then the composite configuration
+0.8, obj 'cost', max_iter 1000 (lines 14-35) by the host loop ``fit``,
+recording a ``Visualizer`` frame every max_iter / 40 iterations and
+rendering the posterior bands as ``experiments/co2.py:26-45`` does, where
+matplotlib imports (the card's host has none: ``composite.json`` then
+says ``"plots": false``).  Then the composite configuration
 (``experiments/co2.py:56-93``): known-annual-period seasonal and
 quadratic-trend columns as ``extra_basis`` with linear y scaling, trained
 by ``fit_fast``, with its NMSE over the surrogate's Bayes floor.
 
     python -m scfgp_tpu_torch.experiments.co2 [--quick] [--cpu] [--out DIR]
 
-Writes ``co2_model.pkl`` and ``composite.json`` to the output directory.
+Writes ``co2_model.pkl`` and ``composite.json`` to the output directory,
+and with matplotlib ``posterior_bands.png`` and ``plot_training.gif``.
 """
 
 import argparse
@@ -42,6 +45,17 @@ def seasonal_trend_basis(omega: float):
     return basis
 
 
+def _visualizer(max_iter: int):
+    """The ``Visualizer`` of ``experiments/co2.py:34``, or None where
+    matplotlib is not installed."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return None
+    from ..utils.visualizer import Visualizer
+    return Visualizer(record_every=max(1, max_iter // 40))
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true")
@@ -57,12 +71,18 @@ def main(argv=None) -> dict:
     sparsity, nfeats = (20, 20) if args.quick else (100, 50)
     max_iter = 150 if args.quick else 1000
     model = SCFGP(sparsity=sparsity, nfeats=nfeats, seed=0, device=device)
-    model.fit(Xt, yt, Xv, yv, obj="cost", algo=ADAMAX, nbatches=1,
-              cvrg_tol=1e-5, max_cvrg=8, max_iter=max_iter)
+    viz = _visualizer(max_iter)
+    model.fit(Xt, yt, Xv, yv, visualizer=viz, obj="cost", algo=ADAMAX,
+              nbatches=1, cvrg_tol=1e-5, max_cvrg=8, max_iter=max_iter)
     model.save(os.path.join(out, "co2_model.pkl"))
+    if viz is not None:
+        viz.save(os.path.join(out, "posterior_bands.png"))
+        if viz.frames:
+            viz.save_animation(os.path.join(out, "plot_training.gif"))
     rec = {"nmse": float(model.evals["NMSE"][1][model.min_obj_ind]),
            "mnlp": float(model.evals["MNLP"][1][model.min_obj_ind]),
-           "iterations": len(model.evals["COST"][1]) - 1}
+           "iterations": len(model.evals["COST"][1]) - 1,
+           "plots": viz is not None}
     print("NMSE:", rec["nmse"])
     print("MNLP:", rec["mnlp"])
 

@@ -23,9 +23,9 @@ all chains (rungs, Monte-Carlo samples) as the trial axis of one batched
 log posterior (``bayes/``), and ``predict_bayes`` mixes over the draws.
 
 Not ported yet, each raising ``NotImplementedError`` with the ROADMAP.md
-item that brings it: the ``visualizer`` argument, ``mesh=`` (of
-``optimize_fused`` and ``fit_fast_batch``) and ``streaming_block`` of
-``fit_bayes``.  The JAX package's non-finite refit under an auto-resolved 1-pass TPU matmul
+item that brings it: ``mesh=`` (of ``optimize_fused`` and
+``fit_fast_batch``) and ``streaming_block`` of ``fit_bayes``.  The JAX
+package's non-finite refit under an auto-resolved 1-pass TPU matmul
 precision (``_precision_fallback_needed``, ``model.py:1488-1518``, and
 its per-trial form in ``fit_fast_batch``, ``:310-322``) has no
 counterpart: the port computes in IEEE float32 with TF32 off, so the
@@ -453,6 +453,12 @@ class SCFGP:
             return tree_add(params, delta), opt_state, cost, aux.post
         return step
 
+    def get_compiled_funcs(self):
+        """Kept for the reference API (``SCFGP.py:150-151``): there are no
+        compiled functions to hand out, so None, as in
+        ``scfgp_tpu/models/model.py:613-616``."""
+        return None
+
     def _minibatches(self, batchsize, shuffle=True):
         """Shuffled minibatch generator (``SCFGP.py:172-182``), shuffled by
         the NumPy ``self._rng`` as in the JAX package, so both draw the same
@@ -482,9 +488,6 @@ class SCFGP:
         ``load()``, from either package): optimizer accumulators, iteration,
         best-params tracking and the host RNG are restored, so an
         interrupted-and-resumed run replays the uninterrupted one."""
-        if visualizer is not None:
-            raise _not_ported("optimize(visualizer=...)",
-                              "item 9 (utilities: utils/visualizer.py)")
         resume = bool(args.get("resume", False))
         ts = self._train_state
         if resume and not ts:
@@ -516,6 +519,11 @@ class SCFGP:
         step = self._make_step(tx)
         eval_fn = self._eval_fn()
         X, y = _trainable(self.X), _trainable(self.y)
+
+        animate = None
+        if visualizer is not None:
+            visualizer.model = self
+            animate = visualizer.train_with_plot()
 
         if Xv is None or yv is None:
             obj = "COST"
@@ -570,6 +578,8 @@ class SCFGP:
             if it % max(max_iter // 10, 1) == 1:
                 self.message("-" * 17, "VALIDATION ITERATION", it, "-" * 17)
                 self._print_current_evals()
+            if animate is not None:
+                animate(it)
             logger.log(it, **{k: (self.evals[k][1][-1]
                                   if self.evals[k][1] else None)
                               for k in ("COST", "NMSE", "MNLP", "RMSE")})
@@ -1148,6 +1158,16 @@ class SCFGP:
         if ys is not None:
             return self._predict_scaled_and_log(Xs_t, np.asarray(ys))
         return self._predict_unscale(Xs_t)
+
+    @torch.inference_mode()
+    def _predict_on_scaled(self, Xs):
+        """Scaled-space predictive mean and std, as NumPy (N,), on inputs
+        already transformed: what the reference Visualizer plots
+        (``Visualizer.py:35``; ``scfgp_tpu/models/model.py:1724-1730``)."""
+        mu, std = predict_f(self.params, self.post,
+                            self._tensor(np.asarray(Xs)).contiguous(),
+                            basis_fn=self.extra_basis)
+        return _to_numpy(mu).ravel(), _to_numpy(std).ravel()
 
     # -- persistence ----------------------------------------------------------
 

@@ -27,13 +27,20 @@ trials of a batched sweep (``models/model.py::fit_fast_batch``), what
 do each direction for all B trials in one launch, and trial b gets
 bitwise the bits of the 2-D call on trial b.
 
+The forward is also the registered operator ``scfgp_tpu_torch::phi_fwd``
+(``phi_fwd_op``): K1f for a CUDA tensor, ``fourier_features_ref`` for a CPU
+tensor, and a fake implementation that gives the output's shape, so
+``torch.export`` can trace the feature map into a program
+(``utils/serving.py``); a program run on the card launches K1f through it
+and counts the launch.
+
 ``FourierFeatures`` joins the two directions into one
 ``torch.autograd.Function`` (the JAX package's ``custom_vjp``,
-``scfgp_tpu/ops/phi.py:168-187``): it saves X, Fcat, pcat and s, not Phi,
-and gives X, which is data, no gradient.  A CUDA tensor goes to the
-kernels, a CPU tensor to the plain versions; there is no fallback.  The raw
-kernel wrappers refuse tensors that require grad: differentiate through
-``FourierFeatures``.
+``scfgp_tpu/ops/phi.py:168-187``): its forward is ``phi_fwd_op``; it saves
+X, Fcat, pcat and s, not Phi, and gives X, which is data, no gradient.  A
+CUDA tensor goes to the kernels, a CPU tensor to the plain versions; there
+is no fallback.  The raw kernel wrappers refuse tensors that require grad:
+differentiate through ``FourierFeatures``.
 """
 
 from __future__ import annotations
@@ -219,6 +226,25 @@ fourier_features_cuda.launches = 0
 fourier_features_bwd_cuda.launches = 0
 
 
+@torch.library.custom_op("scfgp_tpu_torch::phi_fwd", mutates_args=(),
+                         device_types="cpu")
+def phi_fwd_op(X: torch.Tensor, Fcat: torch.Tensor, pcat: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """The feature map as a registered operator: on the CPU the plain
+    version, on the card K1f (``_phi_fwd``, which counts the launch)."""
+    return fourier_features_ref(X, Fcat, pcat, scale)
+
+
+@phi_fwd_op.register_kernel("cuda")
+def _phi_fwd_op_cuda(X, Fcat, pcat, scale):
+    return _phi_fwd(X, Fcat, pcat, scale)
+
+
+@phi_fwd_op.register_fake
+def _phi_fwd_op_fake(X, Fcat, pcat, scale):
+    return X.new_empty((*X.shape[:-1], 2 * Fcat.shape[-1]))
+
+
 class FourierFeatures(torch.autograd.Function):
     """Feature map differentiable in (Fcat, pcat, scale): K1f forward, K1b
     backward on the card; the plain versions on the CPU."""
@@ -226,9 +252,7 @@ class FourierFeatures(torch.autograd.Function):
     @staticmethod
     def forward(ctx, X, Fcat, pcat, scale):
         ctx.save_for_backward(X, Fcat, pcat, scale)
-        if X.device.type == "cpu":
-            return fourier_features_ref(X, Fcat, pcat, scale)
-        return _phi_fwd(X, Fcat, pcat, scale)
+        return phi_fwd_op(X, Fcat, pcat, scale)
 
     @staticmethod
     def backward(ctx, g):

@@ -620,3 +620,57 @@ def test_gram_forward_at_d8_matches_plain(cuda_device, n, k):
                           k2f_tolerance(X, F, p, s, y, w)):
         assert torch.equal(a, b)
         assert float((a - r).abs().max()) <= t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,k", [(6553, 8, 277), (777, 3, 37)])
+def test_phi_fwd_op_on_card_is_the_kernel(cuda_device, n, d, k):
+    """The registered operator launches K1f (counted) and gives its bits."""
+    from scfgp_tpu_torch.ops.phi import phi_fwd_op
+    X, F, p, s = _inputs(n, d, k, cuda_device)
+    before = fourier_features_cuda.launches
+    got = torch.ops.scfgp_tpu_torch.phi_fwd(X, F, p, s)
+    assert fourier_features_cuda.launches == before + 1
+    assert torch.equal(got, fourier_features_cuda(X, F, p, s))
+    torch.library.opcheck(phi_fwd_op, (X, F, p, s),
+                          test_utils=("test_schema", "test_faketensor"))
+
+
+@pytest.mark.cuda
+def test_exported_predictor_on_card_equals_predict(cuda_device):
+    """kin8nm served through the exported program: one K1f launch a call,
+    no Cholesky kernel, and the model's predict within 1e-5 (the same
+    operations; only GEMMs of another row count may round otherwise)."""
+    from scfgp_tpu_torch.utils.serving import (ServedPredictor,
+                                               export_predictor)
+    _, _, Xv, _, _ = load_kin8nm(seed=0)
+    ckpt = os.path.join(ROOT, "experiments", "results", "kin8nm",
+                        "best_model.pkl")
+    m = SCFGP(device="cuda").load(ckpt)
+    served = ServedPredictor(export_predictor(m, 256), device="cuda")
+    chol = cholesky_cuda.launches + cholesky_inverse_cuda.launches
+    for rows in (slice(0, 1), slice(1, 18), slice(18, 274)):
+        before = fourier_features_cuda.launches
+        mu, sd = served(Xv[rows])
+        assert fourier_features_cuda.launches == before + 1
+        mu_r, sd_r = m.predict(Xv[rows])
+        np.testing.assert_allclose(mu, mu_r, rtol=1e-5,
+                                   atol=1e-5 * np.abs(mu_r).max())
+        np.testing.assert_allclose(sd, sd_r, rtol=1e-5)
+    assert cholesky_cuda.launches + cholesky_inverse_cuda.launches == chol
+    with pytest.raises(ValueError, match="exported for 'cuda'"):
+        ServedPredictor(export_predictor(m, 8), device="cpu")
+
+
+@pytest.mark.cuda
+def test_exact_gp_on_card_equals_cpu(cuda_device):
+    from scfgp_tpu_torch.baselines import ExactGP
+    rng = np.random.RandomState(0)
+    X = rng.rand(120, 3) * 3
+    y = np.sin(X[:, 0]) + 0.5 * np.cos(X[:, 2]) + 0.1 * rng.randn(120)
+    gpu = ExactGP(steps=100, device="cuda").fit(X[:100], y[:100])
+    cpu = ExactGP(steps=100, device="cpu").fit(X[:100], y[:100])
+    np.testing.assert_allclose(gpu.nlml_history.cpu().numpy(),
+                               cpu.nlml_history.numpy(), rtol=1e-10)
+    for a, b in zip(gpu.predict(X[100:]), cpu.predict(X[100:])):
+        np.testing.assert_allclose(a, b, rtol=1e-10)

@@ -87,8 +87,12 @@ def test_scaler_state_dict_crosses_packages():
 
 
 def test_scaler_native_and_bad_algo_raise():
-    with pytest.raises(NotImplementedError):
-        Scaler("auto-normal", native=True)
+    """``native=True`` fits (the C++ lambda fitter, or SciPy where it cannot
+    be built) and round-trips; an unknown algorithm raises."""
+    X = np.exp(np.random.RandomState(8).randn(200, 3))
+    sc = Scaler("auto-normal", native=True).fit(X)
+    back = sc.backward_transform(sc.forward_transform(X)).numpy()
+    np.testing.assert_allclose(back, X, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError):
         Scaler("bogus")
 
@@ -224,11 +228,17 @@ def test_import_leaves_jax_out():
             " scfgp_tpu_torch.experiments.kin8nm,"
             " scfgp_tpu_torch.experiments.co2, scfgp_tpu_torch.bayes,"
             " scfgp_tpu_torch.experiments.kin8nm_bayes_probe,"
-            " scfgp_tpu_torch.experiments.bayes_precision;"
+            " scfgp_tpu_torch.experiments.bayes_precision,"
+            " scfgp_tpu_torch.config, scfgp_tpu_torch.run,"
+            " scfgp_tpu_torch.ops.quadrature, scfgp_tpu_torch.data.native,"
+            " scfgp_tpu_torch.utils.serving, scfgp_tpu_torch.baselines,"
+            " scfgp_tpu_torch.utils.visualizer, scfgp_tpu_torch.graft_entry;"
             "from scfgp_tpu_torch.ops import loss_fn_streaming;"
+            "from scfgp_tpu_torch import Visualizer;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
-            "m.startswith('scfgp_tpu.')];"
+            "m.startswith('scfgp_tpu.') or m == 'matplotlib' or "
+            "m.startswith('matplotlib.')];"
             "print(bad); sys.exit(1 if bad else 0)")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -187,8 +187,6 @@ def test_parts_not_ported_raise():
     m = SCFGP(sparsity=S, nfeats=M, seed=0, device="cpu")
     m.set_data(Xt, yt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.optimize(visualizer=object(), max_iter=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.optimize_fused(mesh=object(), max_iter=2)
     for call in (lambda: m.fit_bayes(Xt, yt, streaming_block=64),
                  lambda: fit_fast_batch([m], [(Xt, yt)], mesh=object())):
