@@ -17,12 +17,14 @@ float64 for both forms of the term, the adapted step sizes, and the
 float32 draws' mixture computed in float64.  On the card by default.
 
     python -m scfgp_tpu_torch.experiments.bayes_precision --mode terms
-        [--rows 2000]
+        [--rows 2000] [--cpu]
 
-fits a MAP on the CPU in float64 (S=20, M=50, a subsample of kin8nm rows)
-and, at noise variances lowered from the MAP's, reads each term's float32
-error against float64: the reference's data-fit term, the residual form,
-the expected NLL and the log determinant.
+fits a MAP in float64 on the plain feature map (S=20, M=50, a subsample of
+kin8nm rows) and, at noise variances lowered from the MAP's, reads each
+term's float32 error against float64: the reference's data-fit term, the
+residual form, the expected NLL and the log determinant.  The float32 terms
+take the samplers' arithmetic (K1f and cuBLAS on the card).  On the card by
+default, as fleet mode; ``--cpu`` runs either mode on the CPU.
 """
 
 import argparse
@@ -129,15 +131,22 @@ def fleet(args, device):
                       **rec}), flush=True)
 
 
-def terms(args):
+def terms(args, device):
+    """One JSON line a noise variance; returns the lines."""
     from ..models.model import SCFGP
     Xt, yt, _, _, _ = load_kin8nm(seed=0)
-    m = SCFGP(sparsity=S, nfeats=M, seed=0, device="cpu",
+    m = SCFGP(sparsity=S, nfeats=M, seed=0, device=device,
               dtype=torch.float64)
-    m.fit_fast(Xt[:args.rows], yt[:args.rows], obj="COST", max_iter=300)
+    with plain_feature_map():  # the kernels take float32 only
+        m.fit_fast(Xt[:args.rows], yt[:args.rows], obj="COST", max_iter=300)
     theta = pack_params(m.params)
 
     def parts(dt, shift):
+        with (plain_feature_map() if dt == torch.float64
+              else contextlib.nullcontext()):
+            return terms_at(dt, shift)
+
+    def terms_at(dt, shift):
         th = theta.to(dt).clone()
         th[0] += shift
         p = unpack_params(th, m.D, S, M)
@@ -157,12 +166,16 @@ def terms(args):
             "logdet": 2.0 * torch.sum(post.log_diag_L),
             "sig2": sig2}
 
+    lines = []
     for shift in (0.0, -1.0, -2.0, -3.0):
         a, b = parts(torch.float64, shift), parts(torch.float32, shift)
-        print(json.dumps({"shift_a": shift, "sig2": float(a["sig2"]), **{
-            k + "_f32_err": float(b[k]) - float(a[k])
-            for k in ("reference", "residual", "enll", "logdet")}}),
-            flush=True)
+        lines.append({"shift_a": shift, "sig2": float(a["sig2"]),
+                      "device": str(b["sig2"].device), **{
+                          k + "_f32_err": float(b[k]) - float(a[k])
+                          for k in ("reference", "residual", "enll",
+                                    "logdet")}})
+        print(json.dumps(lines[-1]), flush=True)
+    return lines
 
 
 def main(argv=None):
@@ -174,14 +187,14 @@ def main(argv=None):
     ap.add_argument("--quick", action="store_true",
                     help="30 + 30 transitions (smoke run)")
     ap.add_argument("--cpu", action="store_true",
-                    help="fleet mode on the CPU instead of the card")
+                    help="run on the CPU instead of the card")
     args = ap.parse_args(argv)
     warnings.simplefilter("ignore")
+    device = "cpu" if args.cpu else "cuda"
     if args.mode == "terms":
         args.rows = args.rows or 2000
-        terms(args)
-    else:
-        fleet(args, "cpu" if args.cpu else "cuda")
+        return terms(args, device)
+    fleet(args, device)
 
 
 if __name__ == "__main__":
