@@ -99,15 +99,32 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    loaded on this host, its lambdas on kin8nm's training inputs against
    SciPy's, ``set_data``'s seconds with each; 13d the exact GP on the
    boston surrogate in float64 within 1.25x of the floor; 13e
-   ``graft_entry.entry()``.
+   ``graft_entry.entry()``;
+14. the rest of the Bayes layer: 14a the chain-batched streaming log
+   posterior at the kin8nm campaign width in blocks of 1024 rows, 4 K1f and
+   2 K1b launches a block at 1 and at 32 chains, against the dense log
+   posterior and its kernel path against the plain map, device and wall
+   ms; 14b ``fit_bayes(sampler="hmc", streaming_block=1024,
+   chain_init="map")`` at a cut budget below the MAP arm's NMSE, its
+   streaming mixture against the dense mixture of the same draws, and
+   ``recalibrate=True`` refused; 14c experiments/sgld_scale.py at N=1e6,
+   D=256, S=M=128, 4 chains (pSGLD at B = 4096 and 16384, streaming ULA
+   cut to 5 + 15 steps): draws/s and the ULA leg's peak memory; 14d the
+   dynamic NUTS and the host-looped NUTS and HMC at kin8nm width, 8 chains,
+   max_depth 6, 30 + 30: accept rate, depths, divergences and K1b launches
+   against 2^d a transition; 14e experiments/bench_hmc.py at 30 + 30; 14f
+   experiments/bayes_predictive.py --quick on co2, seed 0, every arm, in a
+   child process beside 14b and 14d: each finite Bayes arm's recalibrated
+   MNLP below its raw one.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
 and GEMM routes, the crossover, the posterior through K3, and each path of
-phases 11, 12 and 13) and read just after; every training phase must
-launch K1f and K1b, the streaming kernel route K1f, K1b, K2f and K2b, its
-GEMM route K1f and K1b but neither K2f nor K2b, the crossover K4 and K3,
-the posterior K3, the Bayes paths K1f and K1b but no K2 kernel; the
+phases 11 to 14; a child process counts its own) and read just after;
+every training phase must launch K1f and K1b, the streaming kernel route
+K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f nor K2b,
+the crossover K4 and K3, the posterior K3, the Bayes paths K1f and K1b but
+no K2 kernel; the
 serving, training, streaming and Bayes paths must launch neither K3 nor
 K4 (their posterior stays on torch's pair), and a served request exactly
 one K1f and nothing else.  The line before the last is a JSON object with
@@ -339,6 +356,64 @@ CUT_ARMS = {
                  thin=2, batch_size=256, init_step_size=1e-5,
                  chain_init="ensemble", map_iters=200),
 }
+
+
+# Phase 14: the rest of the Bayes layer.  14a, the chain-batched streaming
+# log posterior at the campaign's kin8nm width, blocks of 1024 rows (7
+# blocks of the 6553, the last ragged), against the dense one: the same
+# sums in another order, held at phase 9's streaming bounds; its kernel
+# path against the plain map at phase 6's.  A streaming gradient launches
+# K1f 4 times a block (pass 1, pass 2, and both again in the backward's
+# recompute) and K1b twice, whatever the chain count.
+STREAM_BAYES_BLOCK = 1024
+STREAM_BAYES_CHAINS = (1, BAYES_CHAINS)
+# 14b, fit_bayes over the streaming objective from the MAP, cut to fit the
+# run; pinned below the MAP arm's NMSE.  Its streaming mixture against the
+# dense mixture of the same draws differs as update_data's posterior does
+# (the Gram summed in blocks): held at STREAM_MIX_TOL, relative (the mean to
+# its largest value, the std each).
+STREAM_FIT = dict(sampler="hmc", chains=8, num_warmup=20, num_samples=20,
+                  num_integration_steps=16, init_step_size=0.003,
+                  chain_init="map", map_iters=300,
+                  streaming_block=STREAM_BAYES_BLOCK)
+STREAM_MIX_TOL = 1e-3
+# 14c, experiments/sgld_scale.py at full width (N=1e6, D=256, S=M=128, 4
+# chains, block 16384): the pSGLD legs at the JAX budgets (20 + 50), the
+# ULA leg cut to 5 + 15.  The ULA leg's peak over resident must stay under
+# ULA_PEAK_BOUND: O(C x block x 2K), far below X's 1.02 GB.
+SGLD_SCALE_ARGS = ["--ula-warmup", "5", "--ula-samples", "15"]
+ULA_PEAK_BOUND = 2 << 30
+# 14d, the dynamic NUTS and the host-looped samplers on the kin8nm log
+# posterior: 8 random-init chains, max_depth 6.
+DYNAMIC_NUTS = dict(num_warmup=30, num_samples=30, max_depth=6,
+                    init_step_size=0.003)
+HOST_HMC = dict(num_warmup=30, num_samples=30, num_integration_steps=16,
+                init_step_size=0.003)
+# 14e, experiments/bench_hmc.py at 30 + 30; 14f, experiments/
+# bayes_predictive.py --quick on co2, seed 0, every arm.  Every path of the
+# port is host-bound (the card ~10-25% busy), so 14f runs as a child
+# process beside 14b and 14d, which then report their rates as measured
+# beside it; 14a, 14c and 14e run alone.
+BENCH_HMC_ARGS = ["--warmup", "30", "--samples", "30"]
+CAMPAIGN_ARGS = ["--quick", "--datasets", "co2", "--seeds", "1"]
+# A child process's own launch counts, set to 0 before its path and printed
+# after it as the last line of its output, with the driver's result.
+CHILD_LAUNCHES = """
+import json, sys
+from scfgp_tpu_torch.ops import cholesky, gram, phi
+from scfgp_tpu_torch.experiments import {module} as driver
+fns = dict(phi_fwd=phi.fourier_features_cuda,
+           phi_bwd=phi.fourier_features_bwd_cuda,
+           gram_fwd=gram.sufficient_stats_cuda,
+           gram_bwd=gram.sufficient_stats_bwd_cuda,
+           cholesky=cholesky.cholesky_cuda,
+           cholesky_inverse=cholesky.cholesky_inverse_cuda)
+for fn in fns.values():
+    fn.launches = 0
+out = driver.main(sys.argv[1:])
+print(json.dumps({{"launches": {{k: fn.launches for k, fn in fns.items()}},
+                  "result": out}}))
+"""
 
 
 def say(phase, **fields):
@@ -664,17 +739,30 @@ def plain_fourier_features(params, X):
     return fourier_features_ref(X, fr.Fcat, fr.pcat, scale)
 
 
+class PlainFeatures:
+    """``FourierFeatures`` by the plain PyTorch version, differentiable by
+    autograd, for the streaming objective's blocks."""
+
+    @staticmethod
+    def apply(X, Fcat, pcat, scale):
+        from scfgp_tpu_torch.ops.phi import fourier_features_ref
+        return fourier_features_ref(X, Fcat, pcat, scale)
+
+
 @contextlib.contextmanager
 def plain_feature_map():
-    """Run the model's objective on the plain feature map: every loss,
-    gradient and prediction inside skips K1f and K1b."""
+    """Run the model's objective, dense and streaming, on the plain feature
+    map: every loss, gradient and prediction inside skips K1f and K1b."""
     from scfgp_tpu_torch.models import objective
-    kernel = objective.fourier_features
+    from scfgp_tpu_torch.ops import streaming
+    kernel, blocks = objective.fourier_features, streaming.FourierFeatures
     objective.fourier_features = plain_fourier_features
+    streaming.FourierFeatures = PlainFeatures
     try:
         yield
     finally:
         objective.fourier_features = kernel
+        streaming.FourierFeatures = blocks
 
 
 def trial_of(tree, b):
@@ -770,7 +858,14 @@ class Launches:
             fn.launches = 0
 
     def read(self, path, need=("phi_fwd", "phi_bwd"), none=CHOL_KERNELS):
-        counts = {name: fn.launches for name, fn in self.kernels.items()}
+        return self.record(path, {name: fn.launches
+                                   for name, fn in self.kernels.items()},
+                           need, none)
+
+    def record(self, path, counts, need=("phi_fwd", "phi_bwd"),
+               none=CHOL_KERNELS):
+        """Check and keep a path's counts, read here or by a child
+        process that ran the path (``CHILD_LAUNCHES``)."""
         for name in need:
             check(counts[name] > 0, f"{name} was not launched in {path}")
         for name in none:
@@ -1474,6 +1569,304 @@ def bayes_phase(launches, workdir):
     bayes_cut_arms_phase(launches, (Xt, yt, Xv, yv), floor)
     bayes_diverging_phase(launches, m)
     say("bayes", seconds=time.perf_counter() - t)
+
+
+def stream_blocks(n):
+    return -(-n // STREAM_BAYES_BLOCK)
+
+
+def streaming_bayes_gradient_phase(launches, m):
+    """Phase 14a: the chain-batched streaming log posterior and gradient
+    on model ``m``'s scaled data: at each chain count of
+    STREAM_BAYES_CHAINS the same launches (4 K1f and 2 K1b a block); at the
+    largest, each chain's value and each block of the gradient against the
+    dense log posterior (STREAM_*_TOL) and the kernel path against the
+    plain map (COST_TOL, GRAD_TOL), with device and wall ms."""
+    from scfgp_tpu_torch.bayes import batched_value_and_grad, make_logposterior
+    theta = random_chains(m, max(STREAM_BAYES_CHAINS), SEED)
+    C, P = theta.shape
+    vg = batched_value_and_grad(make_logposterior(
+        m.X, m.y, m.D, m.S, m.M, streaming_block=STREAM_BAYES_BLOCK))
+    blocks = stream_blocks(m.N)
+    counts = {}
+    for c in STREAM_BAYES_CHAINS:
+        vg(theta[:c])
+        torch.cuda.synchronize()
+        launches.start()
+        ld, g = vg(theta[:c])
+        torch.cuda.synchronize()
+        counts[c] = launches.read(f"streaming_bayes_gradient_c{c}",
+                                  none=BAYES_NONE)
+    dense = batched_value_and_grad(make_logposterior(m.X, m.y, m.D, m.S,
+                                                     m.M))
+    ld_d, g_d = dense(theta)
+    with plain_feature_map():
+        ld_p, g_p = vg(theta)
+    ds = 3 + m.D * m.S
+    parts = (("abc", slice(0, 3)), ("l_F", slice(3, ds)), ("r_F", slice(ds, P)))
+
+    def errs(a, ga, b, gb):
+        return (float(((a - b).abs() / b.abs()).max()),
+                {name: float((ga[:, s] - gb[:, s]).abs().max()
+                             / gb[:, s].abs().max()) for name, s in parts})
+
+    e_dense, e_plain = errs(ld, g, ld_d, g_d), errs(ld, g, ld_p, g_p)
+    dev_ms, wall_ms, busy, top = device_busy(lambda: vg(theta), steps=5)
+    d_dev_ms, d_wall_ms, d_busy, _ = device_busy(lambda: dense(theta),
+                                                 steps=5)
+    say("streaming_bayes_gradient", chains=C, dim=P, rows=m.N,
+        block=STREAM_BAYES_BLOCK, blocks=blocks,
+        vs_dense=dict(ld_rel_err=e_dense[0], grad_rel_err=e_dense[1]),
+        vs_plain=dict(ld_rel_err=e_plain[0], grad_rel_err=e_plain[1]),
+        device_ms=dev_ms, wall_ms=wall_ms, busy=busy,
+        dense_device_ms=d_dev_ms, dense_wall_ms=d_wall_ms, dense_busy=d_busy,
+        top_kernels_ms=top, launches={str(c): n for c, n in counts.items()})
+    for c, n in counts.items():
+        check(n["phi_fwd"] == 4 * blocks and n["phi_bwd"] == 2 * blocks,
+              f"a streaming gradient of {c} chains over {blocks} blocks "
+              f"launched {n}")
+    check(bool(torch.isfinite(ld).all() and torch.isfinite(g).all()),
+          "streaming bayes gradient: a value is not finite")
+    check(e_dense[0] <= STREAM_COST_TOL
+          and max(e_dense[1].values()) <= STREAM_GRAD_TOL,
+          f"streaming bayes gradient: streaming and dense differ: {e_dense}")
+    check(e_plain[0] <= COST_TOL and max(e_plain[1].values()) <= GRAD_TOL,
+          f"streaming bayes gradient: kernel and plain differ: {e_plain}")
+
+
+def streaming_fit_bayes_phase(launches, data, beside=None):
+    """Phase 14b: ``fit_bayes`` over the streaming objective (STREAM_FIT),
+    its streaming mixture against the dense mixture of the same draws,
+    below the MAP arm's NMSE; ``recalibrate=True`` must raise.  ``beside``
+    as in ``dynamic_nuts_phase``."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.utils.metrics import regression_metrics
+    import warnings
+    Xt, yt, Xv, yv = data
+    m = SCFGP(**BAYES_MODEL, seed=SEED, device="cuda")
+    launches.start()
+    t = time.perf_counter()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m.fit_bayes(Xt, yt, **STREAM_FIT)
+    wall = time.perf_counter() - t
+    mu, sd = m.predict_bayes(Xv)
+    torch.cuda.synchronize()
+    counts = launches.read("streaming_fit_bayes", none=BAYES_NONE)
+    met = regression_metrics(mu, sd, np.reshape(yv, (-1, 1)))
+    m._bayes_streaming_block = 0
+    mu_d, sd_d = m.predict_bayes(Xv)
+    m._bayes_streaming_block = STREAM_BAYES_BLOCK
+    e_mu = float(np.abs(mu - mu_d).max() / np.abs(mu_d).max())
+    e_sd = float(np.abs((sd - sd_d) / sd_d).max())
+    try:
+        m.predict_bayes(Xv, recalibrate=True)
+        refused = False
+    except ValueError:
+        refused = True
+    grads = hmc_gradients(STREAM_FIT)
+    res = m.bayes_result
+    say("streaming_fit_bayes", **{k: v for k, v in STREAM_FIT.items()},
+        NMSE=met["NMSE"], MNLP=met["MNLP"], wall_s=wall,
+        sampler_wall_s=m.bayes_diagnostics_wall,
+        accept=float(res.accept_rate), divergences=int(res.divergences),
+        mix_rel_err=dict(mu=e_mu, std=e_sd), tol=STREAM_MIX_TOL,
+        recalibrate_refused=refused, batched_gradients=grads,
+        gradients_per_s=grads / m.bayes_diagnostics_wall, beside=beside,
+        launches=counts)
+    check(counts["phi_bwd"] >= 2 * stream_blocks(m.N) * grads,
+          f"streaming fit_bayes: {grads} streaming gradients launched K1b "
+          f"{counts['phi_bwd']} times")
+    check(np.isfinite([met["NMSE"], met["MNLP"]]).all()
+          and met["NMSE"] < MAP_NMSE,
+          f"streaming fit_bayes: NMSE {met['NMSE']} is not finite and "
+          f"below the MAP arm's {MAP_NMSE}")
+    check(e_mu <= STREAM_MIX_TOL and e_sd <= STREAM_MIX_TOL,
+          f"streaming mixture against dense: {e_mu}, {e_sd}")
+    check(refused, "predict_bayes(recalibrate=True) after a streaming fit "
+          "did not raise")
+
+
+def sgld_scale_phase(launches, workdir):
+    """Phase 14c: experiments/sgld_scale.py at full width, one leg a path:
+    draws and steps a second, non-finite proposals, and the ULA leg's peak
+    memory over resident under ULA_PEAK_BOUND."""
+    from scfgp_tpu_torch.experiments import sgld_scale
+    legs = []
+    for leg in ("psgld-b4096", "psgld-b16384", "ula-streaming"):
+        launches.start()
+        out = sgld_scale.main(SGLD_SCALE_ARGS + ["--legs", leg, "--out",
+                                                 workdir])
+        torch.cuda.synchronize()
+        row = dict(out["legs"][0], launches=launches.read(
+            "sgld_scale_" + leg, none=BAYES_NONE))
+        say("sgld_scale", **{k: out[k] for k in ("n", "d", "s", "m", "dim",
+                                                 "chains")}, **row)
+        legs.append(row)
+        check(row["logdensity_finite"] and row["nonfinite"] == 0,
+              f"sgld_scale {leg}: non-finite values: {row}")
+    ula = legs[-1]
+    steps = ula["warmup"] + ula["samples"]
+    blocks = -(-out["n"] // ula["streaming_block"])
+    # The per-chain copy of one block of X that every block pass makes
+    # (K1f and K1b refuse a stride-0 X), four a block a gradient.
+    block = torch.rand((ula["streaming_block"], out["d"]), device="cuda")
+    copy_ms = median_ms(lambda: block.expand(
+        out["chains"], *block.shape).contiguous(), hide_host=True)
+    say("streaming_block_copy", chains=out["chains"],
+        shape=list(block.shape), bytes=out["chains"] * block.nbytes,
+        ms=copy_ms, copies_per_gradient=4 * blocks,
+        ms_per_gradient=4 * blocks * copy_ms)
+    # One warm gradient of a few rows, then 2 K1b a block a step.
+    check(ula["launches"]["phi_bwd"] == 1 + 2 * blocks * steps,
+          f"ULA: {steps} streaming gradients launched {ula['launches']}")
+    check(ula["peak_bytes_over_resident"] <= ULA_PEAK_BOUND,
+          f"ULA: peak {ula['peak_bytes_over_resident']} over resident")
+
+
+def dynamic_nuts_phase(launches, m, beside=None):
+    """Phase 14d: the dynamic NUTS, the host-looped NUTS and the host-
+    looped HMC over 8 random-init chains of model ``m``'s log posterior:
+    accept rate, mean depth, divergences, and K1b launches (one a batched
+    gradient) against the bound 2^d a transition (its start and 2^d - 1
+    leaves, d the deepest chain's depth).  ``beside``: the phase running
+    beside it, if any (its rates are then those of a shared host)."""
+    from scfgp_tpu_torch.bayes import (hmc_sample_host_looped,
+                                       make_logposterior, nuts_sample,
+                                       nuts_sample_host_looped)
+    theta = random_chains(m, 8, SEED + 2)
+    lp = make_logposterior(m.X, m.y, m.D, m.S, m.M)
+    for name, run in (
+            ("nuts", lambda g: nuts_sample(lp, theta, g, **DYNAMIC_NUTS)),
+            ("nuts_host_looped", lambda g: nuts_sample_host_looped(
+                lp, theta, g, **DYNAMIC_NUTS)),
+            ("hmc_host_looped", lambda g: hmc_sample_host_looped(
+                lp, theta, g, **HOST_HMC))):
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        launches.start()
+        t = time.perf_counter()
+        res = run(gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        counts = launches.read("bayes_" + name, none=BAYES_NONE)
+        row = dict(chains=8, accept=float(res.accept_rate),
+                   divergences=int(res.divergences), wall_s=wall,
+                   beside=beside, launches=counts)
+        if name.startswith("nuts"):
+            d_max = res.depths.max(dim=1).values.cpu()
+            bound = int((2 ** d_max).sum())
+            transitions = res.depths.shape[0]
+            row.update(mean_depth=float(res.mean_depth),
+                       depth_hist=torch.bincount(
+                           res.depths.flatten().cpu(),
+                           minlength=DYNAMIC_NUTS["max_depth"] + 1).tolist(),
+                       gradients=res.gradients, bound_2_to_d=bound,
+                       k1b_per_transition=counts["phi_bwd"] / transitions,
+                       bound_per_transition=bound / transitions)
+            check(counts["phi_bwd"] == res.gradients <= bound,
+                  f"{name}: K1b {counts['phi_bwd']}, gradients "
+                  f"{res.gradients}, bound {bound}")
+        else:
+            grads = hmc_gradients(HOST_HMC)
+            row.update(gradients=grads)
+            check(counts["phi_bwd"] == grads,
+                  f"{name}: {grads} gradients launched K1b "
+                  f"{counts['phi_bwd']} times")
+        row["gradients_per_s"] = row["gradients"] / wall
+        say("bayes_" + name, **row)
+        check(bool(torch.isfinite(res.samples).all())
+              and 0.0 < row["accept"] <= 1.0,
+              f"{name}: draws not finite or accept {row['accept']}")
+
+
+def bench_hmc_phase(launches, workdir):
+    """Phase 14e: experiments/bench_hmc.py at BENCH_HMC_ARGS: samples/s and
+    ESS/s of each leg."""
+    from scfgp_tpu_torch.experiments import bench_hmc
+    launches.start()
+    out = bench_hmc.main(BENCH_HMC_ARGS + ["--out", workdir])
+    counts = launches.read("bench_hmc", none=BAYES_NONE)
+    say("bench_hmc", legs=out, launches=counts)
+    for leg, r in out.items():
+        check(math.isfinite(r["samples_per_s"]) and r["samples_per_s"] > 0,
+              f"bench_hmc {leg}: {r}")
+
+
+def campaign_start(workdir):
+    """Phase 14f, started: experiments/bayes_predictive.py at CAMPAIGN_ARGS
+    in a child process that counts its own launches."""
+    return subprocess.Popen(
+        [sys.executable, "-c", CHILD_LAUNCHES.format(
+            module="bayes_predictive"), *CAMPAIGN_ARGS, "--out", workdir],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def campaign_phase(launches, proc, started):
+    """Phase 14f, finished: each Bayes arm whose metrics are finite must
+    have its recalibrated MNLP below its raw MNLP; an arm that diverges
+    (the co2 fleet does in the JAX campaign) is counted, not failed."""
+    try:
+        stdout, stderr = proc.communicate(timeout=900)
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    wall = time.perf_counter() - started
+    check(proc.returncode == 0, f"campaign: exit {proc.returncode}: "
+          f"{stderr[-2000:]}")
+    child = json.loads(stdout.strip().splitlines()[-1])
+    counts = launches.record("campaign_co2", child["launches"],
+                             none=BAYES_NONE)
+    arms = child["result"]["co2"]["rows"][0]["arms"]
+    map_mnlp = arms["map"]["MNLP"]
+    gaps, nonfinite = {}, []
+    for arm, r in arms.items():
+        if "MNLP_recal" not in r:
+            continue
+        if not np.isfinite([r["MNLP"], r["MNLP_recal"]]).all():
+            nonfinite.append(arm)
+            continue
+        gaps[arm] = r["MNLP_recal"] - map_mnlp
+        check(r["MNLP_recal"] < r["MNLP"],
+              f"campaign co2 {arm}: MNLP_recal {r['MNLP_recal']} is not "
+              f"below MNLP {r['MNLP']}")
+    say("campaign_co2", arms=arms, map_mnlp=map_mnlp,
+        recal_minus_map_mnlp=gaps, nonfinite_arms=nonfinite, wall_s=wall,
+        launches=counts)
+
+
+def bayes_rest_phase(launches, workdir):
+    """Phase 14: the streaming log posterior and fit_bayes, the ported
+    sampler-scale, dynamic-NUTS, throughput and campaign drivers, 14a-14f."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_kin8nm
+    t = time.perf_counter()
+    Xt, yt, Xv, yv, _ = load_kin8nm(seed=0)
+    m = SCFGP(**BAYES_MODEL, seed=SEED, device="cuda")
+    m.set_data(Xt, yt)
+    times = {}
+
+    def timed_part(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        times[name] = time.perf_counter() - t0
+
+    timed_part("14a", streaming_bayes_gradient_phase, launches, m)
+    started = time.perf_counter()
+    proc = campaign_start(workdir)
+    try:
+        timed_part("14b", streaming_fit_bayes_phase, launches,
+                   (Xt, yt, Xv, yv), "14f")
+        timed_part("14d", dynamic_nuts_phase, launches, m, "14f")
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        raise
+    timed_part("14f", campaign_phase, launches, proc, started)
+    timed_part("14c", sgld_scale_phase, launches, workdir)
+    timed_part("14e", bench_hmc_phase, launches, workdir)
+    say("bayes_rest", seconds=time.perf_counter() - t, parts_s=times,
+        campaign_beside="14b, 14d")
 
 
 # Phase 13a: the command line at the kin8nm protocol's width (sparsity -1,
@@ -2238,6 +2631,11 @@ def main():
 
     # 13. the command line, the served predictor and the helpers ---------
     cli_serving_phase(launches)
+
+    # 14. the rest of the Bayes layer -------------------------------------
+    rest_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_bayes_rest_")
+    bayes_rest_phase(launches, rest_dir.name)
+    rest_dir.cleanup()
 
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",

@@ -311,3 +311,19 @@ def hmc_sample(logdensity_fn: Callable, init_positions: torch.Tensor, rng,
     return HMCResult(samples=samples, logdensities=lds, accept_rate=acc,
                      step_size=eps, inv_mass=inv_mass, divergences=divs,
                      final_positions=q, warmup_state=ws)
+
+
+def hmc_sample_host_looped(logdensity_fn: Callable,
+                           init_positions: torch.Tensor, rng,
+                           num_warmup: int = 500, num_samples: int = 500,
+                           num_integration_steps: int = 16,
+                           init_step_size: float = 0.01,
+                           target_accept: float = 0.8) -> HMCResult:
+    """``scfgp_tpu/bayes/hmc.py:208-247``: HMC with the adaptation shared
+    by the chains and run on the host.  The port's samplers run on the host
+    already, so this is ``hmc_sample`` under JAX's signature."""
+    return hmc_sample(logdensity_fn, init_positions, rng,
+                      num_warmup=num_warmup, num_samples=num_samples,
+                      num_integration_steps=num_integration_steps,
+                      init_step_size=init_step_size,
+                      target_accept=target_accept)

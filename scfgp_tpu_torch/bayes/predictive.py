@@ -20,9 +20,11 @@ The mixture takes chunks of draws as the trial axis under ``no_grad``,
 keeping running sums (law of total variance, biased variance), so its peak
 memory is that of one chunk's Φ, (chunk, N, 2K).
 
-``streaming_block > 0`` (the O(block)-memory objective) raises
-``NotImplementedError``: the streaming objective and K2f/K2b take no chain
-axis yet (ROADMAP.md Queue 1 item 7).
+``streaming_block > 0`` takes both through the O(block)-memory objective
+(``ops/streaming.py``) with the chains (draws) as its trial axis, for N
+whose Φ would not fit in memory: X stays (N, D), each block is copied per
+chain inside the block, and a batched gradient is still one K1f and one
+K1b launch a block pass whatever C.
 """
 
 from __future__ import annotations
@@ -31,14 +33,7 @@ import torch
 
 from ..models.objective import loss_fn, predict_f, softplus
 from ..models.params import reduced_dim, unpack_params
-
-
-def refuse_streaming(streaming_block):
-    if streaming_block:
-        raise NotImplementedError(
-            "streaming_block > 0 is not ported to scfgp_tpu_torch yet: the "
-            "streaming objective takes no chain axis (ROADMAP.md Queue 1 "
-            "item 7)")
+from ..ops.streaming import loss_fn_streaming, streaming_posterior
 
 
 class _Data:
@@ -77,10 +72,21 @@ def make_logposterior(X, y, D, S, M, temperature: float = 1.0,
     the float32 cancellation that makes the reference's form too noisy for
     HMC on the card.  ``n_scale`` replaces the N of
     ``-0.5 * N * cost``: the full data size for a minibatch estimator
-    (``bayes/sgld.py``)."""
-    refuse_streaming(streaming_block)
-    data = _Data(X, y)
+    (``bayes/sgld.py``).  ``streaming_block > 0`` takes the cost from
+    ``loss_fn_streaming`` in blocks of that many rows (the residual form
+    summed in its pass 2), the chains as its trial axis."""
     n = X.shape[0] if n_scale is None else int(n_scale)
+    if streaming_block:
+        def cost_of(p):
+            return loss_fn_streaming(p, X, y, block_size=int(streaming_block),
+                                     basis_fn=basis_fn, residual_fit=True)[0]
+    else:
+        data = _Data(X, y)
+
+        def cost_of(p):
+            Xc, yc = data.of(tuple(p.a.shape))
+            return loss_fn(p, Xc, yc, basis_fn=basis_fn,
+                           residual_fit=True)[0]
     if phases is None:
         pinned = torch.zeros(S + M, dtype=X.dtype, device=X.device)
     else:
@@ -91,10 +97,7 @@ def make_logposterior(X, y, D, S, M, temperature: float = 1.0,
         if not include_phases:
             pin = pinned.to(theta.dtype).expand(*theta.shape[:-1], S + M)
             theta = torch.cat([theta, pin], dim=-1)
-        Xc, yc = data.of(tuple(theta.shape[:-1]))
-        cost, _ = loss_fn(unpack_params(theta, D, S, M), Xc, yc,
-                          basis_fn=basis_fn, residual_fit=True)
-        return -0.5 * n * cost / temperature
+        return -0.5 * n * cost_of(unpack_params(theta, D, S, M)) / temperature
 
     return logpost
 
@@ -135,8 +138,16 @@ def predictive_mixture(thetas, X, y, Xs, D, S, M, basis_fn=None,
     chunk is padded with weight-0 copies of the last draw.
     ``recalibrate=True`` replaces each draw's ``softplus(c)`` by ``mean(train
     resid²) / (1 + mean(train var_f))`` before its variance enters the
-    mixture (``scfgp_tpu/bayes/predictive.py:159-169``)."""
-    refuse_streaming(streaming_block)
+    mixture (``scfgp_tpu/bayes/predictive.py:159-169``).
+    ``streaming_block > 0`` solves each chunk's posteriors by the streaming
+    pass 1 (``ops/streaming.py::streaming_posterior``) with the chunk as its
+    trial axis, in blocks of that many rows; it does not take
+    ``recalibrate``, whose train-set moments would need Φ of all rows."""
+    if recalibrate and streaming_block:
+        raise ValueError("recalibrate=True is not supported with "
+                         "streaming_block (train-set moments would "
+                         "materialize Phi); recalibrate on a subsample "
+                         "instead")
     thetas = torch.as_tensor(thetas, device=X.device)
     if thetas.shape[-1] == reduced_dim(D, S, M):
         # Phase-free draws: phases are gauge, any value predicts the same.
@@ -148,18 +159,24 @@ def predictive_mixture(thetas, X, y, Xs, D, S, M, basis_fn=None,
     w = torch.cat([thetas.new_ones(n_draws), thetas.new_zeros(pad_n)])
     if pad_n:
         thetas = torch.cat([thetas, thetas[-1:].expand(pad_n, -1)])
-    Xc, yc = _Data(X, y).of((chunk,))
+    if not streaming_block:
+        Xc, yc = _Data(X, y).of((chunk,))
     Xsc = Xs.expand(chunk, *Xs.shape).contiguous()
     s_mu = s_mu2 = s_var = thetas.new_zeros(Xs.shape[0])
     with torch.no_grad():
         for i in range(0, thetas.shape[0], chunk):
             p = unpack_params(thetas[i:i + chunk], D, S, M)
             wgt = w[i:i + chunk, None]
-            _, aux = loss_fn(p, Xc, yc, basis_fn=basis_fn)
-            mus, stds = predict_f(p, aux.post, Xsc, basis_fn=basis_fn)
+            if streaming_block:
+                _, post = streaming_posterior(p, X, y,
+                                              block_size=int(streaming_block),
+                                              basis_fn=basis_fn)
+            else:
+                post = loss_fn(p, Xc, yc, basis_fn=basis_fn)[1].post
+            mus, stds = predict_f(p, post, Xsc, basis_fn=basis_fn)
             if recalibrate:
                 sp = softplus(p.c)[:, None]
-                mu_tr, std_tr = predict_f(p, aux.post, Xc, basis_fn=basis_fn)
+                mu_tr, std_tr = predict_f(p, post, Xc, basis_fn=basis_fn)
                 var_f_tr = std_tr * std_tr / sp - 1.0
                 resid2 = torch.mean((yc - mu_tr) ** 2, dim=-1)
                 sp_new = resid2 / (1.0 + torch.mean(var_f_tr, dim=-1))

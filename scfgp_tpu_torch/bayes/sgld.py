@@ -11,7 +11,8 @@ with the RMSProp metric ``G = 1 / (lambda + sqrt(v))`` shared by the chains
 scaled-batch approximation of the reference's ``nbatches > 1`` training
 (``reference: SCFGP/SCFGP.py:226-235``): the SCFGP cost does not decompose
 over rows, so it is not an unbiased estimate of the full gradient.
-``batch_size == 0`` is the full gradient (ULA).
+``batch_size == 0`` is the full gradient (ULA), through the streaming
+objective with ``streaming_block > 0`` for N whose Φ would not fit.
 
 Random inputs each step, in this order: the row indices (B,), drawn with
 replacement and shared by all chains (only with a minibatch), and the
@@ -27,8 +28,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .hmc import as_draws
-from .predictive import (refuse_streaming, batched_value_and_grad,
-                         make_logposterior)
+from .predictive import batched_value_and_grad, make_logposterior
 
 
 class SGLDResult(NamedTuple):
@@ -50,10 +50,9 @@ def make_minibatch_value_and_grad(X, y, D, S, M, batch_size: int,
     With ``0 < batch_size < N`` the estimator has attributes ``n`` and
     ``batch_size``: the sampler then draws ``rows`` (B,), with replacement,
     and the value is the N-scaled log posterior of those rows.  Otherwise
-    ``rows`` is None and the value is the full log posterior (ULA).
-    ``streaming_block > 0`` raises ``NotImplementedError`` (ROADMAP.md
-    Queue 1 item 7)."""
-    refuse_streaming(streaming_block)
+    ``rows`` is None and the value is the full log posterior (ULA), in
+    blocks of ``streaming_block`` rows when it is positive
+    (``scfgp_tpu/bayes/sgld.py:69-103``)."""
     n = X.shape[0]
     if batch_size and batch_size < n:
         def value_and_grad(q, rows):
@@ -63,8 +62,8 @@ def make_minibatch_value_and_grad(X, y, D, S, M, batch_size: int,
 
         value_and_grad.n, value_and_grad.batch_size = n, int(batch_size)
         return value_and_grad
-    vg = batched_value_and_grad(make_logposterior(X, y, D, S, M,
-                                                  basis_fn=basis_fn))
+    vg = batched_value_and_grad(make_logposterior(
+        X, y, D, S, M, basis_fn=basis_fn, streaming_block=streaming_block))
     return lambda q, rows: vg(q)
 
 

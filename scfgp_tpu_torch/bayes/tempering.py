@@ -13,8 +13,9 @@ beta_{t+1}) (E_{t+1} - E_t)))`` for E the untempered log posterior.
 Random inputs each step, in this order: the standard-normal momentum
 (T, C, P), the accept uniforms (T, C), the swap uniforms (T - 1, C).
 
-``tempered_hmc_sample_segmented`` is not ported: segmentation existed only
-for a TPU worker's execution limit (ROADMAP.md Queue 1 item 7).
+``tempered_hmc_sample_segmented`` is not ported, and never will be:
+segmentation existed only for a TPU worker's limit on one execution
+(``CLAUDE.md:31-37``); one-shot and segmented runs are the same in law.
 """
 
 from __future__ import annotations

@@ -20,11 +20,12 @@ mixture.
 
 The Bayes layer: ``fit_bayes`` samples the hyperparameter posterior with
 all chains (rungs, Monte-Carlo samples) as the trial axis of one batched
-log posterior (``bayes/``), and ``predict_bayes`` mixes over the draws.
+log posterior (``bayes/``), dense or over the streaming objective
+(``streaming_block``), and ``predict_bayes`` mixes over the draws.
 
-Not ported yet, each raising ``NotImplementedError`` with the ROADMAP.md
-item that brings it: ``mesh=`` (of ``optimize_fused`` and
-``fit_fast_batch``) and ``streaming_block`` of ``fit_bayes``.  The JAX
+Not ported yet, raising ``NotImplementedError`` with the ROADMAP.md item
+that brings it: ``mesh=`` (of ``optimize_fused`` and
+``fit_fast_batch``).  The JAX
 package's non-finite refit under an auto-resolved 1-pass TPU matmul
 precision (``_precision_fallback_needed``, ``model.py:1488-1518``, and
 its per-trial form in ``fit_fast_batch``, ``:310-322``) has no
@@ -296,6 +297,7 @@ class SCFGP:
         self.post: Optional[Posterior] = None
         self.cost = None          # forward objective of the last set_data
         self.thetas = None        # posterior draws (fit_bayes, checkpoint)
+        self._bayes_streaming_block = 0  # fit_bayes's, for predict_bayes
         self.bayes_result = None  # the sampler's result (fit_bayes)
         self.bayes_diagnostics = None  # its Diagnostics (R-hat, ESS) ...
         self.bayes_diagnostics_wall = None  # ... and wall seconds (ESS/s)
@@ -929,18 +931,22 @@ class SCFGP:
         the same in law there, and segmenting existed only for a TPU
         worker's execution limit.  The samplers run in IEEE float32 with
         TF32 off (the port has no ``mm_dtype``/``mm_precision``), what the
-        JAX package forces on its samplers anyway.  ``streaming_block > 0``
-        raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 7)."""
+        JAX package forces on its samplers anyway.
+
+        ``streaming_block > 0`` takes every log posterior (the sampler's,
+        the tempered probe's and its ladder's) and ``predict_bayes``'s
+        mixture through the streaming objective in blocks of that many
+        rows, for N whose Φ would not fit in memory
+        (``scfgp_tpu/models/model.py:1148-1161, 1704-1708``); X is never
+        copied per chain whole, only block by block."""
         from ..bayes import (diagnose, hmc_sample, make_logposterior,
                              make_minibatch_value_and_grad,
                              nuts_sample_static, sgld_sample,
                              tempered_hmc_sample, vi_posterior_sample)
-        from ..bayes.predictive import refuse_streaming
         from ..bayes.tempering import energy_matched_ladder
         from .params import reduced_dim
 
         del segment  # one-shot: see the docstring
-        refuse_streaming(streaming_block)
         if sampler not in ("hmc", "nuts", "tempered", "vi", "sgld"):
             raise ValueError(
                 f"unknown sampler '{sampler}' (hmc|nuts|tempered|vi|sgld)")
@@ -948,13 +954,15 @@ class SCFGP:
             raise ValueError(
                 "chain_init must be 'random', 'map', or 'ensemble'")
         self.set_data(X, y)
+        self._bayes_streaming_block = int(streaming_block)
         P = reduced_dim(self.D, self.S, self.M)
         init = self._chain_inits(X, y, chains, P, chain_init, map_iters,
                                  init_jitter)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._rng.randint(0, 2**31 - 1))
         logpost = make_logposterior(self.X, self.y, self.D, self.S, self.M,
-                                    basis_fn=self.extra_basis)
+                                    basis_fn=self.extra_basis,
+                                    streaming_block=int(streaming_block))
         hmc_kw = dict(num_integration_steps=num_integration_steps,
                       init_step_size=float(init_step_size),
                       target_accept=float(target_accept))
@@ -963,7 +971,7 @@ class SCFGP:
             akey = ("tempered", self._data_fingerprint(), self.S, self.M,
                     int(chains), int(num_integration_steps),
                     float(target_accept), float(init_step_size),
-                    int(max_rungs), None if betas is None
+                    int(streaming_block), int(max_rungs), None if betas is None
                     else tuple(np.asarray(betas).ravel().tolist()))
             if reuse_adaptation:
                 reuse = self._bayes_adaptation.get(akey)
@@ -1017,7 +1025,8 @@ class SCFGP:
         else:
             vg = make_minibatch_value_and_grad(
                 self.X, self.y, self.D, self.S, self.M, int(batch_size),
-                basis_fn=self.extra_basis)
+                basis_fn=self.extra_basis,
+                streaming_block=int(streaming_block))
             res = sgld_sample(vg, init, gen, num_warmup=num_warmup,
                               num_samples=num_samples,
                               step_size=float(init_step_size),
@@ -1091,7 +1100,9 @@ class SCFGP:
         in original units (``scfgp_tpu/models/model.py:1680-1714``): the
         mixture of ``bayes/predictive.py::predictive_mixture``, un-scaled
         by the half-range rule; logs the metrics when ``ys`` is given.
-        ``recalibrate=True`` recalibrates the dispersion draw by draw."""
+        ``recalibrate=True`` recalibrates the dispersion draw by draw; after
+        a ``fit_bayes(streaming_block>0)`` the mixture streams too, and
+        ``recalibrate=True`` raises ``ValueError``."""
         from ..bayes.predictive import predictive_mixture
         if self.thetas is None:
             raise RuntimeError(
@@ -1102,7 +1113,9 @@ class SCFGP:
                 "original training data first (draws condition on it)")
         mu_f, std_f = predictive_mixture(
             self.thetas, self.X, self.y, self._scale_X(Xs), self.D, self.S,
-            self.M, basis_fn=self.extra_basis, recalibrate=recalibrate)
+            self.M, basis_fn=self.extra_basis,
+            streaming_block=self._bayes_streaming_block,
+            recalibrate=recalibrate)
         mu_y, std_y = self._unscale_moments(mu_f, std_f)
         if ys is not None:
             ys = np.asarray(ys).reshape(-1, 1)

@@ -16,6 +16,16 @@ package's ``jax.checkpoint``), so the backward recomputes it instead of
 keeping it, or it goes through ``SufficientStatsFn``, which saves no Phi.
 Peak memory is then O(block_size x 2K) whatever N.
 
+Trials: params with a leading trial axis B (the chains of a sampler,
+``bayes/predictive.py``) give cost (B,), each trial's value and gradient
+its own 1-trial call's, as ``models/objective.py::loss_fn``.  X (N, D), y
+and w stay shared: each block is copied to a contiguous (B, rows, D) inside
+its checkpointed body (K1f and K1b refuse a stride-0 X), so the backward's
+recompute makes the copy again and nothing of size N x B is kept.  One
+batched block is one K1f (K1b) launch whatever B, so a batched streaming
+gradient launches them as often as a 1-trial one.  The ``"kernel"`` route
+takes no trial axis: K2f and K2b have none (ROADMAP.md Queue 2).
+
 The JAX package's TPU and mesh levers (``axis_name``, ``feature_impl``,
 ``mm_precision``) are not carried, as in the port's ``loss_fn``; data
 parallel streaming waits for the port of ``parallel/``.
@@ -28,10 +38,10 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..models.objective import (SufficientStats, LossAux, expected_nll_rows,
-                                kl_penalty, latent_moments, softplus,
-                                solve_posterior, sufficient_stats,
-                                value_and_grad)
+from ..models.objective import (EPSILON, SufficientStats, LossAux,
+                                expected_nll_rows, kl_penalty,
+                                latent_moments, softplus, solve_posterior,
+                                sufficient_stats, value_and_grad)
 from ..models.params import SCFGPParams, derive_frequencies, feature_scale
 from .gram import SufficientStatsFn
 from .phi import FourierFeatures
@@ -47,10 +57,99 @@ def _checkpointed(fn, *args):
                       preserve_rng_state=False)
 
 
+class _Stream:
+    """The row blocks of (X, y, w) and each block's features for params
+    ``p``, per trial when ``p`` has a leading trial axis."""
+
+    def __init__(self, p, X, y, w, block_size, stats_impl, basis_fn):
+        if stats_impl not in STATS_IMPLS:
+            raise ValueError(f"stats_impl must be one of {STATS_IMPLS}, got "
+                             f"{stats_impl!r}")
+        if block_size < 1:
+            raise ValueError(f"block_size must be positive, got "
+                             f"{block_size}")
+        if X.dim() != 2:
+            raise ValueError(f"X must be (N, D), shared by the trials; got "
+                             f"{tuple(X.shape)}")
+        self.lead = tuple(p.a.shape)
+        if self.lead and stats_impl == "kernel":
+            raise NotImplementedError(
+                "stats_impl='kernel' takes no trial axis: K2f and K2b have "
+                "none (ROADMAP.md Queue 2); use stats_impl='gemm'")
+        if stats_impl == "kernel" and basis_fn is not None:
+            raise NotImplementedError(
+                "basis_fn requires stats_impl='gemm' (the Phi-free Gram "
+                "kernel has no extra-column slot)")
+        self.X, self.y = X, y.reshape(-1)
+        self.w = None if w is None else w.reshape(-1).to(X.dtype)
+        self.basis_fn, self.stats_impl = basis_fn, stats_impl
+        # The JAX package pads the last block with zero-weight rows
+        # (streaming.py:34-45); a shorter last block gives the same sums
+        # and copies nothing (X may be gigabytes).
+        self.blocks = [slice(i, i + block_size)
+                       for i in range(0, X.shape[0], block_size)]
+        # The frequencies are derived once, outside the blocks: the same
+        # values as the JAX package's per-block derivation, for fewer host
+        # launches.
+        self.d = derive_frequencies(p)
+        self.scale = feature_scale(p)
+
+    def rows(self, b):
+        return self.X[b], self.y[b], None if self.w is None else self.w[b]
+
+    def trial(self, t):
+        """A block's (rows,) or (rows, D) tensor for every trial: a view of
+        y or w; X's block copied, since the kernels refuse a stride-0 X."""
+        if not self.lead or t is None:
+            return t
+        if t.dim() == 2:
+            return t.expand(*self.lead, *t.shape).contiguous()
+        return t.expand(*self.lead, -1)
+
+    def features(self, Xi):
+        """Phi of the 2-D block ``Xi``, (rows, 2K) or (B, rows, 2K)."""
+        Phi = FourierFeatures.apply(self.trial(Xi), self.d.Fcat, self.d.pcat,
+                                    self.scale)
+        if self.basis_fn is None:
+            return Phi
+        basis = self.basis_fn(Xi).to(Phi.dtype)
+        return torch.cat([Phi, basis.expand(*Phi.shape[:-1], -1)], dim=-1)
+
+    def stats(self) -> SufficientStats:
+        """Pass 1, summed in block order as the JAX package's scan sums."""
+        if self.stats_impl == "kernel":
+            def stats_block(Xi, yi, wi):
+                return SufficientStatsFn.apply(Xi, yi, wi, self.d.Fcat,
+                                               self.d.pcat, self.scale)
+        else:
+            def stats_block(Xi, yi, wi):
+                return _checkpointed(
+                    lambda Xi, yi, wi: tuple(sufficient_stats(
+                        self.features(Xi), self.trial(yi), self.trial(wi))),
+                    Xi, yi, wi)
+        stats = None
+        for b in self.blocks:
+            s = SufficientStats(*stats_block(*self.rows(b)))
+            stats = s if stats is None else SufficientStats(
+                *(a + c for a, c in zip(stats, s)))
+        return stats
+
+
+def streaming_posterior(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
+                        w: Optional[torch.Tensor] = None,
+                        block_size: int = 4096, stats_impl: str = "gemm",
+                        basis_fn=None):
+    """``(stats, post)``: pass 1 and the solve of ``loss_fn_streaming``,
+    the posterior a prediction needs, without pass 2."""
+    st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn)
+    stats = st.stats()
+    return stats, solve_posterior(stats, torch.exp(2.0 * p.a))
+
+
 def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
                       w: Optional[torch.Tensor] = None,
                       block_size: int = 4096, stats_impl: str = "gemm",
-                      basis_fn=None):
+                      basis_fn=None, residual_fit: bool = False):
     """``loss_fn`` with O(block_size) memory: ``(cost, LossAux)``.
 
     ``stats_impl="gemm"`` (the JAX package's ``"xla"``, the default) forms
@@ -58,71 +157,40 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     ``"pallas"``) takes pass 1 through the Phi-free K2 (``ops/gram.py``),
     so no Phi exists in pass 1 even per block.  ``basis_fn`` appends fixed
     composite-model columns per block, as in ``loss_fn``; it needs
-    ``"gemm"``, since K2 has no slot for extra columns."""
-    if stats_impl not in STATS_IMPLS:
-        raise ValueError(f"stats_impl must be one of {STATS_IMPLS}, got "
-                         f"{stats_impl!r}")
-    if block_size < 1:
-        raise ValueError(f"block_size must be positive, got {block_size}")
-    y = y.reshape(-1)
-    if w is not None:
-        w = w.reshape(-1).to(X.dtype)
+    ``"gemm"``, since K2 has no slot for extra columns.  ``residual_fit``
+    takes the data-fit term as ``(Σ w (μ_f - y)² + (σ² + ε)‖α‖²) / σ²``,
+    its rows summed in pass 2 (``objective.py::loss_from_phi``).  Params
+    with a trial axis B give cost (B,) (module docstring)."""
+    st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn)
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
-    # The JAX package pads the last block with zero-weight rows
-    # (streaming.py:34-45); a shorter last block gives the same sums and
-    # copies nothing (X may be gigabytes).
-    blocks = [slice(i, i + block_size) for i in range(0, X.shape[0],
-                                                      block_size)]
-
-    def rows(b):
-        return X[b], y[b], None if w is None else w[b]
-
-    # The frequencies are derived once, outside the blocks: the same values
-    # as the JAX package's per-block derivation, for fewer host launches.
-    d = derive_frequencies(p)
-    scale = feature_scale(p)
-
-    def features(Xi):
-        Phi = FourierFeatures.apply(Xi, d.Fcat, d.pcat, scale)
-        if basis_fn is None:
-            return Phi
-        return torch.cat([Phi, basis_fn(Xi).to(Phi.dtype)], dim=1)
-
-    if stats_impl == "kernel":
-        if basis_fn is not None:
-            raise NotImplementedError(
-                "basis_fn requires stats_impl='gemm' (the Phi-free Gram "
-                "kernel has no extra-column slot)")
-
-        def stats_block(Xi, yi, wi):
-            return SufficientStatsFn.apply(Xi, yi, wi, d.Fcat, d.pcat, scale)
-    else:
-        def stats_block(Xi, yi, wi):
-            return _checkpointed(
-                lambda Xi, yi, wi: tuple(sufficient_stats(features(Xi), yi,
-                                                          wi)), Xi, yi, wi)
-
-    # Pass 1, summed in block order as the JAX package's scan sums.
-    stats = None
-    for b in blocks:
-        s = SufficientStats(*stats_block(*rows(b)))
-        stats = s if stats is None else SufficientStats(
-            *(a + c for a, c in zip(stats, s)))
+    stats = st.stats()
     post = solve_posterior(stats, sig2_n)
 
     def enll_block(Xi, yi, wi):
-        mu_f, var_f = latent_moments(features(Xi), post)
+        mu_f, var_f = latent_moments(st.features(Xi), post)
+        yi, wi = st.trial(yi), st.trial(wi)
         e = expected_nll_rows(mu_f, var_f, yi, noise)
-        return torch.sum(e if wi is None else e * wi)
+        r2 = (mu_f - yi) ** 2 if residual_fit else None
+        if wi is not None:
+            e = e * wi
+            r2 = None if r2 is None else wi * r2
+        return (torch.sum(e, dim=-1),
+                torch.sum(r2, dim=-1) if residual_fit else e.new_zeros(()))
 
-    enll_sum = 0.0
-    for b in blocks:
-        enll_sum = enll_sum + _checkpointed(enll_block, *rows(b))
+    enll_sum = r2_sum = 0.0
+    for b in st.blocks:
+        e, r2 = _checkpointed(enll_block, *st.rows(b))
+        enll_sum, r2_sum = enll_sum + e, r2_sum + r2
 
-    nlml = (2.0 * torch.sum(post.log_diag_L)
+    if residual_fit:
+        fit = r2_sum + (sig2_n + EPSILON) * torch.sum(
+            post.alpha * post.alpha, dim=-1)
+    else:
+        fit = stats.yTy - torch.sum(post.beta * post.beta, dim=-1)
+    nlml = (2.0 * torch.sum(post.log_diag_L, dim=-1)
             + 2.0 * enll_sum
-            + (stats.yTy - torch.sum(post.beta * post.beta)) / sig2_n
+            + fit / sig2_n
             + 2.0 * (stats.n - p.M) * p.a)
     penalty = kl_penalty(p)
     cost = (nlml + penalty) / stats.n

@@ -249,8 +249,12 @@ def test_fit_bayes_counts_divergences_and_stays_finite():
 def test_fit_bayes_refuses_what_it_does_not_take():
     X, y, _, _ = _regression()
     m = SCFGP(sparsity=2, nfeats=4, seed=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.fit_bayes(X, y, streaming_block=64)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        m.fit_bayes(X, y, chains=2, num_warmup=2, num_samples=2,
+                    num_integration_steps=2, streaming_block=64)
+    with pytest.raises(ValueError, match="recalibrate"):
+        m.predict_bayes(X, recalibrate=True)
     with pytest.raises(ValueError, match="unknown sampler"):
         m.fit_bayes(X, y, sampler="mala")
     with pytest.raises(ValueError, match="chain_init"):

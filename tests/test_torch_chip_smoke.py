@@ -118,3 +118,34 @@ def test_kernel_ab_refuses_to_run_without_a_card(capsys):
         pytest.skip("a card is present: the refusal is not reachable")
     assert kernel_ab.main(["--shapes", "kin8nm"]) == 1
     assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_phase_14_keeps_its_shapes_and_budgets():
+    """Phase 14: the streaming log posterior at the campaign's kin8nm width
+    in blocks of 1024 (7 of the 6553 rows, the last ragged) at 1 and 32
+    chains; fit_bayes(hmc) streaming from the MAP at 20 + 20; sgld_scale's
+    ULA leg cut to 5 + 15 (its pSGLD legs at the JAX budgets, the
+    driver's defaults); the dynamic NUTS and the host-looped samplers at
+    8 chains, max_depth 6, 30 + 30; bench_hmc at 30 + 30; the campaign
+    --quick on co2, seed 0, every arm."""
+    from scfgp_tpu_torch.experiments import bayes_predictive
+    assert chip_smoke.BAYES_MODEL == dict(sparsity=20, nfeats=50)
+    assert chip_smoke.STREAM_BAYES_BLOCK == 1024
+    assert chip_smoke.stream_blocks(6553) == 7
+    assert chip_smoke.STREAM_BAYES_CHAINS == (1, 32)
+    fit = chip_smoke.STREAM_FIT
+    assert (fit["sampler"], fit["chain_init"], fit["streaming_block"],
+            fit["num_warmup"], fit["num_samples"]) == ("hmc", "map", 1024,
+                                                       20, 20)
+    assert chip_smoke.SGLD_SCALE_ARGS == ["--ula-warmup", "5",
+                                          "--ula-samples", "15"]
+    assert chip_smoke.DYNAMIC_NUTS == dict(num_warmup=30, num_samples=30,
+                                           max_depth=6, init_step_size=0.003)
+    assert (chip_smoke.HOST_HMC["num_warmup"],
+            chip_smoke.HOST_HMC["num_samples"]) == (30, 30)
+    assert chip_smoke.BENCH_HMC_ARGS == ["--warmup", "30", "--samples", "30"]
+    assert chip_smoke.CAMPAIGN_ARGS == ["--quick", "--datasets", "co2",
+                                        "--seeds", "1"]
+    assert "co2" in bayes_predictive.DATASETS
+    assert chip_smoke.STREAM_MIX_TOL <= 1e-3
+    assert chip_smoke.ULA_PEAK_BOUND <= 2 << 30

@@ -674,3 +674,68 @@ def test_exact_gp_on_card_equals_cpu(cuda_device):
                                cpu.nlml_history.numpy(), rtol=1e-10)
     for a, b in zip(gpu.predict(X[100:]), cpu.predict(X[100:])):
         np.testing.assert_allclose(a, b, rtol=1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chains", [1, 3])
+def test_streaming_logposterior_on_card_matches_plain(cuda_device, chains):
+    """The chain-batched streaming log posterior (S=20, M=50, 1500 kin8nm
+    rows in blocks of 512, the last ragged): value and gradient through K1f
+    and K1b against the plain feature map within phase 12a's bounds, and 4
+    K1f and 2 K1b launches a block whatever the chain count."""
+    from scfgp_tpu_torch.bayes import batched_value_and_grad, make_logposterior
+    from chip_smoke import (COST_TOL, GRAD_TOL, plain_feature_map,
+                            random_chains)
+    Xt, yt, _, _, _ = load_kin8nm(seed=0)
+    m = SCFGP(sparsity=20, nfeats=50, seed=0, device="cuda")
+    m.set_data(Xt[:1500], yt[:1500])
+    theta = random_chains(m, chains, 0)
+    vg = batched_value_and_grad(make_logposterior(
+        m.X, m.y, m.D, m.S, m.M, streaming_block=512))
+    launches = (fourier_features_cuda.launches,
+                fourier_features_bwd_cuda.launches)
+    ld, g = vg(theta)
+    assert fourier_features_cuda.launches - launches[0] == 4 * 3
+    assert fourier_features_bwd_cuda.launches - launches[1] == 2 * 3
+    with plain_feature_map():
+        ld_p, g_p = vg(theta)
+    assert float(((ld - ld_p).abs() / ld_p.abs()).max()) <= COST_TOL
+    ds = 3 + m.D * m.S
+    for s in (slice(0, 3), slice(3, ds), slice(ds, None)):
+        err = (g[:, s] - g_p[:, s]).abs().max() / g_p[:, s].abs().max()
+        assert float(err) <= GRAD_TOL, s
+
+
+@pytest.mark.cuda
+def test_dynamic_nuts_transition_on_card_matches_plain(cuda_device):
+    """One dynamic NUTS transition of 4 chains at max_depth 2 on the Bayes
+    log posterior (1500 kin8nm rows), through the kernels and through the
+    plain map, from the same draws: every chain reaches the same depth, and
+    the positions agree within 1e-4 of the largest starting coordinate
+    (the gradients differ by ~GRAD_TOL relative, moved by e² a step)."""
+    from scfgp_tpu_torch.bayes import batched_value_and_grad, make_logposterior
+    from scfgp_tpu_torch.bayes.hmc import Draws
+    from scfgp_tpu_torch.bayes.nuts import dynamic_transition
+    from chip_smoke import plain_feature_map, random_chains
+    Xt, yt, _, _, _ = load_kin8nm(seed=0)
+    m = SCFGP(sparsity=20, nfeats=50, seed=0, device="cuda")
+    m.set_data(Xt[:1500], yt[:1500])
+    z0 = random_chains(m, 4, 1)
+    vg = batched_value_and_grad(make_logposterior(m.X, m.y, m.D, m.S, m.M))
+    eps = torch.full((4,), 0.01, device="cuda")
+    im = torch.ones_like(z0)
+
+    def transition():
+        draws = Draws(torch.Generator(device="cuda").manual_seed(3),
+                      z0.dtype, z0.device)
+        return dynamic_transition(vg, z0, eps, im, 2, draws)
+
+    launches = fourier_features_bwd_cuda.launches
+    z, ld, acc, depth, div, grads = transition()
+    assert fourier_features_bwd_cuda.launches - launches == grads <= 4
+    with plain_feature_map():
+        z_p, _, _, depth_p, _, _ = transition()
+    assert torch.equal(depth, depth_p)
+    err = float((z - z_p).abs().max()) / max(1.0, float(z0.abs().max()))
+    assert err <= 1e-4, err
+    assert bool(torch.isfinite(z).all())

@@ -188,9 +188,7 @@ def test_parts_not_ported_raise():
     m.set_data(Xt, yt)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m.optimize_fused(mesh=object(), max_iter=2)
-    for call in (lambda: m.fit_bayes(Xt, yt, streaming_block=64),
-                 lambda: fit_fast_batch([m], [(Xt, yt)], mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        fit_fast_batch([m], [(Xt, yt)], mesh=object())
     with pytest.raises(RuntimeError, match="resume"):
         SCFGP(device="cpu").optimize(resume=True)
