@@ -110,12 +110,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``recalibrate=True`` refused; 14c experiments/sgld_scale.py at N=1e6,
    D=256, S=M=128, 4 chains (pSGLD at B = 4096 and 16384, streaming ULA
    cut to 5 + 15 steps): draws/s and the ULA leg's peak memory; 14d the
-   dynamic NUTS and the host-looped NUTS and HMC at kin8nm width, 8 chains,
-   max_depth 6, 30 + 30: accept rate, depths, divergences and K1b launches
-   against 2^d a transition; 14e experiments/bench_hmc.py at 30 + 30; 14f
-   experiments/bayes_predictive.py --quick on co2, seed 0, every arm, in a
-   child process beside 14b and 14d: each finite Bayes arm's recalibrated
-   MNLP below its raw one.
+   dynamic NUTS (30 + 30) and the host-looped NUTS (10 + 10) and HMC (30 +
+   30) at kin8nm width, 8 chains, max_depth 6: accept rate, depths,
+   divergences and K1b launches against 2^d a transition; 14e
+   experiments/bench_hmc.py at 10 + 10; 14f experiments/bayes_predictive.py
+   --tiny on co2, seed 0, every arm, in a child process beside 14b and
+   14d: each finite Bayes arm's recalibrated MNLP below its raw one.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
@@ -384,18 +384,23 @@ STREAM_MIX_TOL = 1e-3
 SGLD_SCALE_ARGS = ["--ula-warmup", "5", "--ula-samples", "15"]
 ULA_PEAK_BOUND = 2 << 30
 # 14d, the dynamic NUTS and the host-looped samplers on the kin8nm log
-# posterior: 8 random-init chains, max_depth 6.
+# posterior: 8 random-init chains, max_depth 6; the host-looped NUTS, the
+# same code as the dynamic one under JAX's signature, cut to 10 + 10.
 DYNAMIC_NUTS = dict(num_warmup=30, num_samples=30, max_depth=6,
                     init_step_size=0.003)
+HOST_NUTS = dict(DYNAMIC_NUTS, num_warmup=10, num_samples=10)
 HOST_HMC = dict(num_warmup=30, num_samples=30, num_integration_steps=16,
                 init_step_size=0.003)
-# 14e, experiments/bench_hmc.py at 30 + 30; 14f, experiments/
-# bayes_predictive.py --quick on co2, seed 0, every arm.  Every path of the
-# port is host-bound (the card ~10-25% busy), so 14f runs as a child
-# process beside 14b and 14d, which then report their rates as measured
-# beside it; 14a, 14c and 14e run alone.
-BENCH_HMC_ARGS = ["--warmup", "30", "--samples", "30"]
-CAMPAIGN_ARGS = ["--quick", "--datasets", "co2", "--seeds", "1"]
+# 14e, experiments/bench_hmc.py at 10 + 10; 14f, experiments/
+# bayes_predictive.py --tiny on co2, seed 0, every arm.  Both are cut from
+# 30 + 30 and --quick to keep the whole run well inside its time limit on
+# a slow host (a run with them took 1092 s of 1200); the campaign's full
+# budgets run apart from this script.  Every path of the port is
+# host-bound, so 14f runs as a child process beside 14b and 14d, which
+# then report their rates as measured beside it; 14a, 14c and 14e run
+# alone.
+BENCH_HMC_ARGS = ["--warmup", "10", "--samples", "10"]
+CAMPAIGN_ARGS = ["--tiny", "--datasets", "co2", "--seeds", "1"]
 # A child process's own launch counts, set to 0 before its path and printed
 # after it as the last line of its output, with the driver's result.
 CHILD_LAUNCHES = """
@@ -1603,7 +1608,8 @@ def streaming_bayes_gradient_phase(launches, m):
     with plain_feature_map():
         ld_p, g_p = vg(theta)
     ds = 3 + m.D * m.S
-    parts = (("abc", slice(0, 3)), ("l_F", slice(3, ds)), ("r_F", slice(ds, P)))
+    parts = (("abc", slice(0, 3)), ("l_F", slice(3, ds)),
+             ("r_F", slice(ds, P)))
 
     def errs(a, ga, b, gb):
         return (float(((a - b).abs() / b.abs()).max()),
@@ -1737,9 +1743,10 @@ def dynamic_nuts_phase(launches, m, beside=None):
     theta = random_chains(m, 8, SEED + 2)
     lp = make_logposterior(m.X, m.y, m.D, m.S, m.M)
     for name, run in (
-            ("nuts", lambda g: nuts_sample(lp, theta, g, **DYNAMIC_NUTS)),
+            ("dynamic_nuts", lambda g: nuts_sample(lp, theta, g,
+                                                   **DYNAMIC_NUTS)),
             ("nuts_host_looped", lambda g: nuts_sample_host_looped(
-                lp, theta, g, **DYNAMIC_NUTS)),
+                lp, theta, g, **HOST_NUTS)),
             ("hmc_host_looped", lambda g: hmc_sample_host_looped(
                 lp, theta, g, **HOST_HMC))):
         gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1748,15 +1755,16 @@ def dynamic_nuts_phase(launches, m, beside=None):
         res = run(gen)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        counts = launches.read("bayes_" + name, none=BAYES_NONE)
+        counts = launches.read(name, none=BAYES_NONE)
         row = dict(chains=8, accept=float(res.accept_rate),
                    divergences=int(res.divergences), wall_s=wall,
                    beside=beside, launches=counts)
-        if name.startswith("nuts"):
+        if "nuts" in name:
             d_max = res.depths.max(dim=1).values.cpu()
             bound = int((2 ** d_max).sum())
             transitions = res.depths.shape[0]
             row.update(mean_depth=float(res.mean_depth),
+                       transitions=int(res.depths.shape[0]),
                        depth_hist=torch.bincount(
                            res.depths.flatten().cpu(),
                            minlength=DYNAMIC_NUTS["max_depth"] + 1).tolist(),
@@ -1773,7 +1781,7 @@ def dynamic_nuts_phase(launches, m, beside=None):
                   f"{name}: {grads} gradients launched K1b "
                   f"{counts['phi_bwd']} times")
         row["gradients_per_s"] = row["gradients"] / wall
-        say("bayes_" + name, **row)
+        say(name, **row)
         check(bool(torch.isfinite(res.samples).all())
               and 0.0 < row["accept"] <= 1.0,
               f"{name}: draws not finite or accept {row['accept']}")

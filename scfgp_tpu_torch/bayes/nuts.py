@@ -82,8 +82,19 @@ def _leapfrog_1(value_and_grad, z, r, g, e, inv_mass):
     return z, r, ld, g
 
 
+def _leaf(ld, r, inv_mass, h0, neg_inf):
+    """A leaf's ``(divergent, log weight, accept prob)`` per chain from its
+    energy error; a divergent leaf, non-finite included, weighs nothing."""
+    delta = -ld + 0.5 * torch.sum(r * r * inv_mass, dim=-1) - h0
+    div = ~torch.isfinite(delta) | (delta > MAX_DELTA_ENERGY)
+    return (div, torch.where(div, neg_inf, -delta),
+            torch.where(div, torch.zeros_like(delta),
+                        torch.clamp(torch.exp(-delta), max=1.0)))
+
+
 def _is_turning(sum_r, r_a, r_b, inv_mass):
-    """The generalised U-turn check of a block per chain (``nuts.py:70-73``)."""
+    """The generalised U-turn check of a block, per chain
+    (``nuts.py:70-73``)."""
     return ((torch.sum(sum_r * inv_mass * r_a, dim=-1) <= 0.0)
             | (torch.sum(sum_r * inv_mass * r_b, dim=-1) <= 0.0))
 
@@ -141,11 +152,7 @@ def dynamic_transition(value_and_grad: Callable, z0, eps, inv_mass,
             z1, r1, ld1, g1 = _leapfrog_1(value_and_grad, z, r, g, e,
                                           inv_mass)
             grads += 1
-            delta = -ld1 + 0.5 * torch.sum(r1 * r1 * inv_mass, dim=-1) - h0
-            div1 = ~torch.isfinite(delta) | (delta > MAX_DELTA_ENERGY)
-            log_w_leaf = torch.where(div1, neg_inf, -delta)
-            accept = torch.where(div1, torch.zeros_like(delta),
-                                 torch.clamp(torch.exp(-delta), max=1.0))
+            div1, log_w_leaf, accept = _leaf(ld1, r1, inv_mass, h0, neg_inf)
             log_w_new = torch.logaddexp(log_w_s, log_w_leaf)
             take = live & (torch.log(u_leaf[n]) < (log_w_leaf - log_w_new))
             z_ps = _pick(take, z1, z_ps)
@@ -227,15 +234,9 @@ def static_transition(value_and_grad: Callable, z0, eps, inv_mass,
         sum_a = torch.zeros_like(ld0)
         for _ in range(1 << j):
             u = draws.uniform((C,))
-            r = r + 0.5 * e * g
-            z = z + e * inv_mass * r
-            ld, g = value_and_grad(z)
-            r = r + 0.5 * e * g
-            delta = -ld + 0.5 * torch.sum(r * r * inv_mass, dim=-1) - h0
-            diverging = ~torch.isfinite(delta) | (delta > MAX_DELTA_ENERGY)
-            log_w_leaf = torch.where(diverging, neg_inf, -delta)
-            accept = torch.where(diverging, torch.zeros_like(delta),
-                                 torch.clamp(torch.exp(-delta), max=1.0))
+            z, r, ld, g = _leapfrog_1(value_and_grad, z, r, g, e, inv_mass)
+            diverging, log_w_leaf, accept = _leaf(ld, r, inv_mass, h0,
+                                                  neg_inf)
             log_w_new = torch.logaddexp(log_w_s, log_w_leaf)
             take = torch.log(u) < (log_w_leaf - log_w_new)
             z_ps = _pick(take, z, z_ps)

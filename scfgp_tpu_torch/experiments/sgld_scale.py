@@ -41,9 +41,6 @@ from ..bayes import make_minibatch_value_and_grad, reduced_dim, sgld_sample
 from ..models.params import init_params, pack_params
 from .boston_housing import RESULTS
 
-LEGS = ("psgld-b4096", "psgld-b16384", "ula-streaming")
-
-
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()

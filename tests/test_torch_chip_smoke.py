@@ -125,9 +125,10 @@ def test_phase_14_keeps_its_shapes_and_budgets():
     in blocks of 1024 (7 of the 6553 rows, the last ragged) at 1 and 32
     chains; fit_bayes(hmc) streaming from the MAP at 20 + 20; sgld_scale's
     ULA leg cut to 5 + 15 (its pSGLD legs at the JAX budgets, the
-    driver's defaults); the dynamic NUTS and the host-looped samplers at
-    8 chains, max_depth 6, 30 + 30; bench_hmc at 30 + 30; the campaign
-    --quick on co2, seed 0, every arm."""
+    driver's defaults); the dynamic NUTS and the host-looped HMC at 8
+    chains, max_depth 6, 30 + 30, the host-looped NUTS at 10 + 10;
+    bench_hmc at 10 + 10; the campaign --tiny on co2, seed 0, every
+    arm."""
     from scfgp_tpu_torch.experiments import bayes_predictive
     assert chip_smoke.BAYES_MODEL == dict(sparsity=20, nfeats=50)
     assert chip_smoke.STREAM_BAYES_BLOCK == 1024
@@ -141,10 +142,12 @@ def test_phase_14_keeps_its_shapes_and_budgets():
                                           "--ula-samples", "15"]
     assert chip_smoke.DYNAMIC_NUTS == dict(num_warmup=30, num_samples=30,
                                            max_depth=6, init_step_size=0.003)
+    assert chip_smoke.HOST_NUTS == dict(chip_smoke.DYNAMIC_NUTS,
+                                        num_warmup=10, num_samples=10)
     assert (chip_smoke.HOST_HMC["num_warmup"],
             chip_smoke.HOST_HMC["num_samples"]) == (30, 30)
-    assert chip_smoke.BENCH_HMC_ARGS == ["--warmup", "30", "--samples", "30"]
-    assert chip_smoke.CAMPAIGN_ARGS == ["--quick", "--datasets", "co2",
+    assert chip_smoke.BENCH_HMC_ARGS == ["--warmup", "10", "--samples", "10"]
+    assert chip_smoke.CAMPAIGN_ARGS == ["--tiny", "--datasets", "co2",
                                         "--seeds", "1"]
     assert "co2" in bayes_predictive.DATASETS
     assert chip_smoke.STREAM_MIX_TOL <= 1e-3
