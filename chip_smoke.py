@@ -102,25 +102,26 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``graft_entry.entry()``;
 14. the rest of the Bayes layer: 14a the chain-batched streaming log
    posterior at the kin8nm campaign width in blocks of 1024 rows, 4 K1f and
-   2 K1b launches a block at 1 and at 32 chains, against the dense log
-   posterior and its kernel path against the plain map, device and wall
-   ms; 14b ``fit_bayes(sampler="hmc", streaming_block=1024,
+   2 K1b launches a block at 1, 8 and 32 chains, its kernel path against
+   the plain map at each and against the dense log posterior, device and
+   wall ms; 14b ``fit_bayes(sampler="hmc", streaming_block=1024,
    chain_init="map")`` at a cut budget below the MAP arm's NMSE, its
    streaming mixture against the dense mixture of the same draws, and
    ``recalibrate=True`` refused; 14c experiments/sgld_scale.py at N=1e6,
    D=256, S=M=128, 4 chains (pSGLD at B = 4096 and 16384, streaming ULA
-   cut to 5 + 15 steps): draws/s and the ULA leg's peak memory; 14d the
-   dynamic NUTS (30 + 30) and the host-looped NUTS (10 + 10) and HMC (30 +
-   30) at kin8nm width, 8 chains, max_depth 6: accept rate, depths,
-   divergences and K1b launches against 2^d a transition; 14e
-   experiments/bench_hmc.py at 10 + 10; 14f experiments/bayes_predictive.py
-   --tiny on co2, seed 0, every arm, in a child process beside 14b and
-   14d: each finite Bayes arm's recalibrated MNLP below its raw one.
+   cut to 5 + 15 steps): draws/s and the ULA leg's peak memory, and one
+   gradient of each leg's log posterior at the shapes the leg gives K1f
+   and K1b, kernel path against the plain map; 14d the dynamic NUTS (30 +
+   30) and the host-looped NUTS and HMC (2 transitions each) at kin8nm
+   width, 8 chains, max_depth 6: accept rate, depths, divergences and K1b
+   launches against 2^d a transition; 14e experiments/bench_hmc.py at 10 +
+   10; 14f experiments/bayes_predictive.py --tiny on co2, seed 0, every
+   arm: each finite Bayes arm's recalibrated MNLP below its raw one.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
 and GEMM routes, the crossover, the posterior through K3, and each path of
-phases 11 to 14; a child process counts its own) and read just after;
+phases 11 to 14) and read just after;
 every training phase must launch K1f and K1b, the streaming kernel route
 K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f nor K2b,
 the crossover K4 and K3, the posterior K3, the Bayes paths K1f and K1b but
@@ -362,11 +363,12 @@ CUT_ARMS = {
 # log posterior at the campaign's kin8nm width, blocks of 1024 rows (7
 # blocks of the 6553, the last ragged), against the dense one: the same
 # sums in another order, held at phase 9's streaming bounds; its kernel
-# path against the plain map at phase 6's.  A streaming gradient launches
-# K1f 4 times a block (pass 1, pass 2, and both again in the backward's
-# recompute) and K1b twice, whatever the chain count.
+# path against the plain map at phase 6's, at each chain count: 1, the 8
+# chains of 14b and 14d, and 32.  A streaming gradient launches K1f 4 times
+# a block (pass 1, pass 2, and both again in the backward's recompute) and
+# K1b twice, whatever the chain count.
 STREAM_BAYES_BLOCK = 1024
-STREAM_BAYES_CHAINS = (1, BAYES_CHAINS)
+STREAM_BAYES_CHAINS = (1, 8, BAYES_CHAINS)
 # 14b, fit_bayes over the streaming objective from the MAP, cut to fit the
 # run; pinned below the MAP arm's NMSE.  Its streaming mixture against the
 # dense mixture of the same draws differs as update_data's posterior does
@@ -380,45 +382,33 @@ STREAM_MIX_TOL = 1e-3
 # 14c, experiments/sgld_scale.py at full width (N=1e6, D=256, S=M=128, 4
 # chains, block 16384): the pSGLD legs at the JAX budgets (20 + 50), the
 # ULA leg cut to 5 + 15.  The ULA leg's peak over resident must stay under
-# ULA_PEAK_BOUND: O(C x block x 2K), far below X's 1.02 GB.
-SGLD_SCALE_ARGS = ["--ula-warmup", "5", "--ula-samples", "15"]
+# ULA_PEAK_BOUND: O(C x block x 2K), far below X's 1.02 GB.  Then each leg's
+# log posterior, on SGLD_CHECK_ROWS rows of the driver's data and its 4
+# initial chains, gives K1f and K1b the leg's shapes: the ULA leg's
+# streaming one in blocks of 16384 (each copied to 4 x 16384 x 256), the
+# pSGLD legs' on 4096 and 16384 drawn rows (4 x B x 256); one gradient of
+# each through the kernels is held against the plain map at COST_TOL and
+# GRAD_TOL, as 14a is.
+ULA_ARGS = ["--warmup", "5", "--samples", "15"]
 ULA_PEAK_BOUND = 2 << 30
+SGLD_CHECK_ROWS = 2 * 16384
 # 14d, the dynamic NUTS and the host-looped samplers on the kin8nm log
-# posterior: 8 random-init chains, max_depth 6; the host-looped NUTS, the
-# same code as the dynamic one under JAX's signature, cut to 10 + 10.
+# posterior: 8 random-init chains, max_depth 6.  The host-looped entries
+# are the dynamic NUTS and HMC under JAX's signatures, and their parity with
+# JAX's is pinned on the CPU: here each takes 2 transitions at the initial
+# step size.
 DYNAMIC_NUTS = dict(num_warmup=30, num_samples=30, max_depth=6,
                     init_step_size=0.003)
-HOST_NUTS = dict(DYNAMIC_NUTS, num_warmup=10, num_samples=10)
-HOST_HMC = dict(num_warmup=30, num_samples=30, num_integration_steps=16,
+HOST_NUTS = dict(DYNAMIC_NUTS, num_warmup=0, num_samples=2)
+HOST_HMC = dict(num_warmup=0, num_samples=2, num_integration_steps=16,
                 init_step_size=0.003)
 # 14e, experiments/bench_hmc.py at 10 + 10; 14f, experiments/
 # bayes_predictive.py --tiny on co2, seed 0, every arm.  Both are cut from
 # 30 + 30 and --quick to keep the whole run well inside its time limit on
 # a slow host (a run with them took 1092 s of 1200); the campaign's full
-# budgets run apart from this script.  Every path of the port is
-# host-bound, so 14f runs as a child process beside 14b and 14d, which
-# then report their rates as measured beside it; 14a, 14c and 14e run
-# alone.
+# budgets run apart from this script.
 BENCH_HMC_ARGS = ["--warmup", "10", "--samples", "10"]
 CAMPAIGN_ARGS = ["--tiny", "--datasets", "co2", "--seeds", "1"]
-# A child process's own launch counts, set to 0 before its path and printed
-# after it as the last line of its output, with the driver's result.
-CHILD_LAUNCHES = """
-import json, sys
-from scfgp_tpu_torch.ops import cholesky, gram, phi
-from scfgp_tpu_torch.experiments import {module} as driver
-fns = dict(phi_fwd=phi.fourier_features_cuda,
-           phi_bwd=phi.fourier_features_bwd_cuda,
-           gram_fwd=gram.sufficient_stats_cuda,
-           gram_bwd=gram.sufficient_stats_bwd_cuda,
-           cholesky=cholesky.cholesky_cuda,
-           cholesky_inverse=cholesky.cholesky_inverse_cuda)
-for fn in fns.values():
-    fn.launches = 0
-out = driver.main(sys.argv[1:])
-print(json.dumps({{"launches": {{k: fn.launches for k, fn in fns.items()}},
-                  "result": out}}))
-"""
 
 
 def say(phase, **fields):
@@ -863,14 +853,7 @@ class Launches:
             fn.launches = 0
 
     def read(self, path, need=("phi_fwd", "phi_bwd"), none=CHOL_KERNELS):
-        return self.record(path, {name: fn.launches
-                                   for name, fn in self.kernels.items()},
-                           need, none)
-
-    def record(self, path, counts, need=("phi_fwd", "phi_bwd"),
-               none=CHOL_KERNELS):
-        """Check and keep a path's counts, read here or by a child
-        process that ran the path (``CHILD_LAUNCHES``)."""
+        counts = {name: fn.launches for name, fn in self.kernels.items()}
         for name in need:
             check(counts[name] > 0, f"{name} was not launched in {path}")
         for name in none:
@@ -1395,12 +1378,7 @@ def bayes_gradient_phase(launches, m):
     counts = launches.read("bayes_gradient", none=BAYES_NONE)
     with plain_feature_map():
         ld_p, g_p = vg(theta)
-    ld_err = float(((ld - ld_p).abs() / ld_p.abs()).max())
-    ds = 3 + m.D * m.S
-    g_err = {name: float((g[:, s] - g_p[:, s]).abs().max()
-                         / g_p[:, s].abs().max())
-             for name, s in (("abc", slice(0, 3)), ("l_F", slice(3, ds)),
-                             ("r_F", slice(ds, P)))}
+    ld_err, g_err = chain_errors(ld, g, ld_p, g_p, m.D, m.S)
     dev_ms, wall_ms, busy, top = device_busy(lambda: vg(theta))
     with plain_feature_map():
         plain_dev_ms, plain_wall_ms, plain_busy, _ = device_busy(
@@ -1580,20 +1558,41 @@ def stream_blocks(n):
     return -(-n // STREAM_BAYES_BLOCK)
 
 
+def chain_errors(ld, g, ld_ref, g_ref, d, sparsity):
+    """Each chain's value relative to its reference, and each block of the
+    gradient (a b c, l_F, r_F) relative to its largest reference entry over
+    the chains."""
+    ds = 3 + d * sparsity
+    parts = (("abc", slice(0, 3)), ("l_F", slice(3, ds)),
+             ("r_F", slice(ds, g.shape[1])))
+    return (float(((ld - ld_ref).abs() / ld_ref.abs()).max()),
+            {name: float((g[:, s] - g_ref[:, s]).abs().max()
+                         / g_ref[:, s].abs().max()) for name, s in parts})
+
+
+def check_plain(what, ld, g, e_plain):
+    """A batched value and gradient: finite, and its kernel path within
+    COST_TOL and GRAD_TOL of the plain map (``chain_errors``)."""
+    check(bool(torch.isfinite(ld).all() and torch.isfinite(g).all()),
+          f"{what}: a value is not finite")
+    check(e_plain[0] <= COST_TOL and max(e_plain[1].values()) <= GRAD_TOL,
+          f"{what}: kernel and plain differ: {e_plain}")
+
+
 def streaming_bayes_gradient_phase(launches, m):
     """Phase 14a: the chain-batched streaming log posterior and gradient
     on model ``m``'s scaled data: at each chain count of
-    STREAM_BAYES_CHAINS the same launches (4 K1f and 2 K1b a block); at the
-    largest, each chain's value and each block of the gradient against the
-    dense log posterior (STREAM_*_TOL) and the kernel path against the
-    plain map (COST_TOL, GRAD_TOL), with device and wall ms."""
+    STREAM_BAYES_CHAINS the same launches (4 K1f and 2 K1b a block) and the
+    kernel path against the plain map (COST_TOL, GRAD_TOL); at the largest,
+    each chain's value and each block of the gradient against the dense
+    log posterior (STREAM_*_TOL), with device and wall ms."""
     from scfgp_tpu_torch.bayes import batched_value_and_grad, make_logposterior
     theta = random_chains(m, max(STREAM_BAYES_CHAINS), SEED)
     C, P = theta.shape
     vg = batched_value_and_grad(make_logposterior(
         m.X, m.y, m.D, m.S, m.M, streaming_block=STREAM_BAYES_BLOCK))
     blocks = stream_blocks(m.N)
-    counts = {}
+    counts, e_plain = {}, {}
     for c in STREAM_BAYES_CHAINS:
         vg(theta[:c])
         torch.cuda.synchronize()
@@ -1602,28 +1601,23 @@ def streaming_bayes_gradient_phase(launches, m):
         torch.cuda.synchronize()
         counts[c] = launches.read(f"streaming_bayes_gradient_c{c}",
                                   none=BAYES_NONE)
+        with plain_feature_map():
+            ld_p, g_p = vg(theta[:c])
+        e_plain[c] = chain_errors(ld, g, ld_p, g_p, m.D, m.S)
+        check_plain(f"streaming bayes gradient of {c} chains", ld, g,
+                    e_plain[c])
     dense = batched_value_and_grad(make_logposterior(m.X, m.y, m.D, m.S,
                                                      m.M))
     ld_d, g_d = dense(theta)
-    with plain_feature_map():
-        ld_p, g_p = vg(theta)
-    ds = 3 + m.D * m.S
-    parts = (("abc", slice(0, 3)), ("l_F", slice(3, ds)),
-             ("r_F", slice(ds, P)))
-
-    def errs(a, ga, b, gb):
-        return (float(((a - b).abs() / b.abs()).max()),
-                {name: float((ga[:, s] - gb[:, s]).abs().max()
-                             / gb[:, s].abs().max()) for name, s in parts})
-
-    e_dense, e_plain = errs(ld, g, ld_d, g_d), errs(ld, g, ld_p, g_p)
+    e_dense = chain_errors(ld, g, ld_d, g_d, m.D, m.S)
     dev_ms, wall_ms, busy, top = device_busy(lambda: vg(theta), steps=5)
     d_dev_ms, d_wall_ms, d_busy, _ = device_busy(lambda: dense(theta),
                                                  steps=5)
     say("streaming_bayes_gradient", chains=C, dim=P, rows=m.N,
         block=STREAM_BAYES_BLOCK, blocks=blocks,
         vs_dense=dict(ld_rel_err=e_dense[0], grad_rel_err=e_dense[1]),
-        vs_plain=dict(ld_rel_err=e_plain[0], grad_rel_err=e_plain[1]),
+        vs_plain={str(c): dict(ld_rel_err=e[0], grad_rel_err=e[1])
+                  for c, e in e_plain.items()},
         device_ms=dev_ms, wall_ms=wall_ms, busy=busy,
         dense_device_ms=d_dev_ms, dense_wall_ms=d_wall_ms, dense_busy=d_busy,
         top_kernels_ms=top, launches={str(c): n for c, n in counts.items()})
@@ -1631,20 +1625,15 @@ def streaming_bayes_gradient_phase(launches, m):
         check(n["phi_fwd"] == 4 * blocks and n["phi_bwd"] == 2 * blocks,
               f"a streaming gradient of {c} chains over {blocks} blocks "
               f"launched {n}")
-    check(bool(torch.isfinite(ld).all() and torch.isfinite(g).all()),
-          "streaming bayes gradient: a value is not finite")
     check(e_dense[0] <= STREAM_COST_TOL
           and max(e_dense[1].values()) <= STREAM_GRAD_TOL,
           f"streaming bayes gradient: streaming and dense differ: {e_dense}")
-    check(e_plain[0] <= COST_TOL and max(e_plain[1].values()) <= GRAD_TOL,
-          f"streaming bayes gradient: kernel and plain differ: {e_plain}")
 
 
-def streaming_fit_bayes_phase(launches, data, beside=None):
+def streaming_fit_bayes_phase(launches, data):
     """Phase 14b: ``fit_bayes`` over the streaming objective (STREAM_FIT),
     its streaming mixture against the dense mixture of the same draws,
-    below the MAP arm's NMSE; ``recalibrate=True`` must raise.  ``beside``
-    as in ``dynamic_nuts_phase``."""
+    below the MAP arm's NMSE; ``recalibrate=True`` must raise."""
     from scfgp_tpu_torch import SCFGP
     from scfgp_tpu_torch.utils.metrics import regression_metrics
     import warnings
@@ -1678,8 +1667,7 @@ def streaming_fit_bayes_phase(launches, data, beside=None):
         accept=float(res.accept_rate), divergences=int(res.divergences),
         mix_rel_err=dict(mu=e_mu, std=e_sd), tol=STREAM_MIX_TOL,
         recalibrate_refused=refused, batched_gradients=grads,
-        gradients_per_s=grads / m.bayes_diagnostics_wall, beside=beside,
-        launches=counts)
+        gradients_per_s=grads / m.bayes_diagnostics_wall, launches=counts)
     check(counts["phi_bwd"] >= 2 * stream_blocks(m.N) * grads,
           f"streaming fit_bayes: {grads} streaming gradients launched K1b "
           f"{counts['phi_bwd']} times")
@@ -1696,13 +1684,14 @@ def streaming_fit_bayes_phase(launches, data, beside=None):
 def sgld_scale_phase(launches, workdir):
     """Phase 14c: experiments/sgld_scale.py at full width, one leg a path:
     draws and steps a second, non-finite proposals, and the ULA leg's peak
-    memory over resident under ULA_PEAK_BOUND."""
+    memory over resident under ULA_PEAK_BOUND; then one gradient of each
+    leg's log posterior at its shapes against the plain map."""
     from scfgp_tpu_torch.experiments import sgld_scale
     legs = []
     for leg in ("psgld-b4096", "psgld-b16384", "ula-streaming"):
         launches.start()
-        out = sgld_scale.main(SGLD_SCALE_ARGS + ["--legs", leg, "--out",
-                                                 workdir])
+        out = sgld_scale.main((ULA_ARGS if leg == "ula-streaming" else [])
+                              + ["--legs", leg, "--out", workdir])
         torch.cuda.synchronize()
         row = dict(out["legs"][0], launches=launches.read(
             "sgld_scale_" + leg, none=BAYES_NONE))
@@ -1728,15 +1717,47 @@ def sgld_scale_phase(launches, workdir):
           f"ULA: {steps} streaming gradients launched {ula['launches']}")
     check(ula["peak_bytes_over_resident"] <= ULA_PEAK_BOUND,
           f"ULA: peak {ula['peak_bytes_over_resident']} over resident")
+    del block
+    sgld_scale_kernels_phase(out, ula["streaming_block"])
 
 
-def dynamic_nuts_phase(launches, m, beside=None):
+def sgld_scale_kernels_phase(cfg, streaming_block):
+    """Phase 14c, the kernels at the legs' shapes: each leg's estimator
+    (``make_minibatch_value_and_grad``) on SGLD_CHECK_ROWS rows of
+    sgld_scale's data and its initial chains, one gradient through K1f and
+    K1b against the plain map (``check_plain``)."""
+    from scfgp_tpu_torch.bayes import make_minibatch_value_and_grad
+    from scfgp_tpu_torch.experiments import sgld_scale
+    D, S, M = cfg["d"], cfg["s"], cfg["m"]
+    X, y, init = sgld_scale.problem(SGLD_CHECK_ROWS, D, S, M, cfg["chains"],
+                                    SEED, torch.device("cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    estimators = [(f"psgld-b{b}", b, 0, torch.randint(
+        SGLD_CHECK_ROWS, (b,), generator=gen, device="cuda"))
+        for b in sgld_scale.BATCHES]
+    estimators.append(("ula-streaming", 0, streaming_block, None))
+    for leg, batch, block, rows in estimators:
+        vg = make_minibatch_value_and_grad(X, y, D, S, M, batch,
+                                           streaming_block=block)
+        ld, g = vg(init, rows)
+        with plain_feature_map():
+            ld_p, g_p = vg(init, rows)
+        e_plain = chain_errors(ld, g, ld_p, g_p, D, S)
+        say("sgld_scale_kernels", leg=leg, chains=cfg["chains"],
+            rows=SGLD_CHECK_ROWS if rows is None else batch, d=D,
+            k=S + M, streaming_block=block, ld_rel_err=e_plain[0],
+            grad_rel_err=e_plain[1], tol=dict(ld=COST_TOL, grad=GRAD_TOL))
+        check_plain(f"sgld_scale {leg} at its shapes", ld, g, e_plain)
+    del X, y
+    torch.cuda.empty_cache()
+
+
+def dynamic_nuts_phase(launches, m):
     """Phase 14d: the dynamic NUTS, the host-looped NUTS and the host-
     looped HMC over 8 random-init chains of model ``m``'s log posterior:
     accept rate, mean depth, divergences, and K1b launches (one a batched
     gradient) against the bound 2^d a transition (its start and 2^d - 1
-    leaves, d the deepest chain's depth).  ``beside``: the phase running
-    beside it, if any (its rates are then those of a shared host)."""
+    leaves, d the deepest chain's depth)."""
     from scfgp_tpu_torch.bayes import (hmc_sample_host_looped,
                                        make_logposterior, nuts_sample,
                                        nuts_sample_host_looped)
@@ -1758,7 +1779,7 @@ def dynamic_nuts_phase(launches, m, beside=None):
         counts = launches.read(name, none=BAYES_NONE)
         row = dict(chains=8, accept=float(res.accept_rate),
                    divergences=int(res.divergences), wall_s=wall,
-                   beside=beside, launches=counts)
+                   launches=counts)
         if "nuts" in name:
             d_max = res.depths.max(dim=1).values.cpu()
             bound = int((2 ** d_max).sum())
@@ -1800,32 +1821,19 @@ def bench_hmc_phase(launches, workdir):
               f"bench_hmc {leg}: {r}")
 
 
-def campaign_start(workdir):
-    """Phase 14f, started: experiments/bayes_predictive.py at CAMPAIGN_ARGS
-    in a child process that counts its own launches."""
-    return subprocess.Popen(
-        [sys.executable, "-c", CHILD_LAUNCHES.format(
-            module="bayes_predictive"), *CAMPAIGN_ARGS, "--out", workdir],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-
-
-def campaign_phase(launches, proc, started):
-    """Phase 14f, finished: each Bayes arm whose metrics are finite must
-    have its recalibrated MNLP below its raw MNLP; an arm that diverges
-    (the co2 fleet does in the JAX campaign) is counted, not failed."""
-    try:
-        stdout, stderr = proc.communicate(timeout=900)
-    except BaseException:
-        proc.kill()
-        proc.wait()
-        raise
-    wall = time.perf_counter() - started
-    check(proc.returncode == 0, f"campaign: exit {proc.returncode}: "
-          f"{stderr[-2000:]}")
-    child = json.loads(stdout.strip().splitlines()[-1])
-    counts = launches.record("campaign_co2", child["launches"],
-                             none=BAYES_NONE)
-    arms = child["result"]["co2"]["rows"][0]["arms"]
+def campaign_phase(launches, workdir):
+    """Phase 14f: experiments/bayes_predictive.py at CAMPAIGN_ARGS.  Each
+    Bayes arm whose metrics are finite must have its recalibrated MNLP
+    below its raw MNLP; an arm that diverges (the co2 fleet does in the JAX
+    campaign) is counted, not failed."""
+    from scfgp_tpu_torch.experiments import bayes_predictive
+    launches.start()
+    t = time.perf_counter()
+    out = bayes_predictive.main(CAMPAIGN_ARGS + ["--out", workdir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = launches.read("campaign_co2", none=BAYES_NONE)
+    arms = out["co2"]["rows"][0]["arms"]
     map_mnlp = arms["map"]["MNLP"]
     gaps, nonfinite = {}, []
     for arm, r in arms.items():
@@ -1845,7 +1853,8 @@ def campaign_phase(launches, proc, started):
 
 def bayes_rest_phase(launches, workdir):
     """Phase 14: the streaming log posterior and fit_bayes, the ported
-    sampler-scale, dynamic-NUTS, throughput and campaign drivers, 14a-14f."""
+    sampler-scale, dynamic-NUTS, throughput and campaign drivers, 14a-14f,
+    each in turn."""
     from scfgp_tpu_torch import SCFGP
     from scfgp_tpu_torch.data.datasets import load_kin8nm
     t = time.perf_counter()
@@ -1853,28 +1862,17 @@ def bayes_rest_phase(launches, workdir):
     m = SCFGP(**BAYES_MODEL, seed=SEED, device="cuda")
     m.set_data(Xt, yt)
     times = {}
-
-    def timed_part(name, fn, *args):
+    for name, fn, *args in (
+            ("14a", streaming_bayes_gradient_phase, launches, m),
+            ("14b", streaming_fit_bayes_phase, launches, (Xt, yt, Xv, yv)),
+            ("14c", sgld_scale_phase, launches, workdir),
+            ("14d", dynamic_nuts_phase, launches, m),
+            ("14e", bench_hmc_phase, launches, workdir),
+            ("14f", campaign_phase, launches, workdir)):
         t0 = time.perf_counter()
         fn(*args)
         times[name] = time.perf_counter() - t0
-
-    timed_part("14a", streaming_bayes_gradient_phase, launches, m)
-    started = time.perf_counter()
-    proc = campaign_start(workdir)
-    try:
-        timed_part("14b", streaming_fit_bayes_phase, launches,
-                   (Xt, yt, Xv, yv), "14f")
-        timed_part("14d", dynamic_nuts_phase, launches, m, "14f")
-    except BaseException:
-        proc.kill()
-        proc.wait()
-        raise
-    timed_part("14f", campaign_phase, launches, proc, started)
-    timed_part("14c", sgld_scale_phase, launches, workdir)
-    timed_part("14e", bench_hmc_phase, launches, workdir)
-    say("bayes_rest", seconds=time.perf_counter() - t, parts_s=times,
-        campaign_beside="14b, 14d")
+    say("bayes_rest", seconds=time.perf_counter() - t, parts_s=times)
 
 
 # Phase 13a: the command line at the kin8nm protocol's width (sparsity -1,

@@ -25,7 +25,7 @@ campaign cut by a TPU worker's fault, which the port does not.
 
     python -m scfgp_tpu_torch.experiments.bayes_predictive [--quick |
         --tiny] [--datasets boston,abalone,kin8nm,co2] [--seeds 3]
-        [--arms map,fleet,...] [--cpu] [--out DIR]
+        [--cpu] [--out DIR]
 
 Runs on the card unless ``--cpu``.  Prints one line an arm and writes
 ``<out>/results.json`` (``results_tiny.json`` with ``--tiny``; default
@@ -79,7 +79,6 @@ BAYES = {
                      init_step_size=0.003, chain_init="ensemble",
                      map_iters=300, shared_adaptation=False),
 }
-ARMS = ("map", "ensemble") + tuple(BAYES)
 LOADERS = {"boston": load_boston, "abalone": load_abalone,
            "kin8nm": load_kin8nm, "co2": load_co2}
 
@@ -146,8 +145,7 @@ def arm_budget(arm, quick):
     return bkw
 
 
-def run_dataset(name, seeds, quick=False, device="cuda", arms=ARMS,
-                verbose=True):
+def run_dataset(name, seeds, quick=False, device="cuda", verbose=True):
     """One row a seed: ``{"seed", "source", "arms": {arm: fields}}``."""
     from ..models.model import SCFGP
     cfg = DATASETS[name]
@@ -177,24 +175,21 @@ def run_dataset(name, seeds, quick=False, device="cuda", arms=ARMS,
                 print(json.dumps({"dataset": name, "seed": seed, "arm": arm,
                                   **out[arm]}), flush=True)
 
-        if "map" in arms:
-            m = SCFGP(**model_kw)
-            t0 = time.time()
-            m.fit_fast(Xt, yt, **opt)
-            if cfg.get("co2"):
-                m.recalibrate_dispersion()  # the co2 recipe
-            record("map", _metrics(*m.predict(Xv), ys), time.time() - t0)
-        if "ensemble" in arms:
-            m = SCFGP(**model_kw)
-            t0 = time.time()
-            m.fit_ensemble(Xt, yt, k=ens["k"], mix_best=ens["mix_best"],
-                           **opt)
-            if cfg.get("co2"):
-                m.recalibrate_dispersion()
-            record("ensemble", _metrics(*m.predict(Xv), ys),
-                   time.time() - t0, ens)
+        m = SCFGP(**model_kw)
+        t0 = time.time()
+        m.fit_fast(Xt, yt, **opt)
+        if cfg.get("co2"):
+            m.recalibrate_dispersion()  # the co2 recipe
+        record("map", _metrics(*m.predict(Xv), ys), time.time() - t0)
+        m = SCFGP(**model_kw)
+        t0 = time.time()
+        m.fit_ensemble(Xt, yt, k=ens["k"], mix_best=ens["mix_best"], **opt)
+        if cfg.get("co2"):
+            m.recalibrate_dispersion()
+        record("ensemble", _metrics(*m.predict(Xv), ys), time.time() - t0,
+               ens)
         for arm in BAYES:
-            if arm not in arms or arm in cfg.get("skip_arms", ()):
+            if arm in cfg.get("skip_arms", ()):
                 continue
             m = SCFGP(**model_kw)
             t0 = time.time()
@@ -246,17 +241,11 @@ def main(argv=None) -> dict:
                     help="minimal budgets, a path check")
     ap.add_argument("--datasets", default="boston,abalone,kin8nm,co2")
     ap.add_argument("--seeds", type=int, default=3)
-    ap.add_argument("--arms", default=",".join(ARMS),
-                    help="comma-separated subset of " + ",".join(ARMS))
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     ap.add_argument("--out", default=None, help="output directory")
     args = ap.parse_args(argv)
     names = [s.strip() for s in args.datasets.split(",") if s.strip()]
-    arms = tuple(a.strip() for a in args.arms.split(",") if a.strip())
-    unknown = set(arms) - set(ARMS)
-    if unknown:
-        ap.error(f"unknown arms {sorted(unknown)}")
     quick = "tiny" if args.tiny else args.quick
     device = "cpu" if args.cpu else "cuda"
     outdir = args.out or os.path.join(RESULTS, "bayes_predictive")
@@ -265,8 +254,7 @@ def main(argv=None) -> dict:
                            else "results.json")
     results = {}
     for name in names:
-        rows = run_dataset(name, list(range(args.seeds)), quick, device,
-                           arms)
+        rows = run_dataset(name, list(range(args.seeds)), quick, device)
         results[name] = {"rows": rows, "summary": summarize(rows)}
         for a, s in results[name]["summary"].items():
             print(json.dumps({"dataset": name, "arm": a, "summary": s}),

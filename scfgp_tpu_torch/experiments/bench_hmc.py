@@ -11,9 +11,10 @@ C chains from random inits.  Legs:
   sgld_b256    pSGLD on 256-row minibatches, 10x the transitions of HMC
 
 JAX's ``--mode fused`` compiles each sampler into one program and its
-``--mode host`` loops over one compiled transition; the port's samplers
-are host loops in both, and ``--mode host`` takes the ``*_host_looped``
-entry points (HMC, and the dynamic NUTS as the leg ``nuts_host``).  JAX's
+``--mode host`` loops over one compiled transition.  The port's samplers
+are host loops either way (its ``*_host_looped`` entries are the same
+samplers under JAX's signatures), so the two modes are one here:
+``--mode`` is accepted for JAX's command line and changes nothing.  JAX's
 ``--mm-precision`` is not carried: the port is IEEE float32, TF32 off.
 Each leg runs once, timed to the host's read of its draws; one batched
 gradient before the legs builds the kernels.
@@ -36,31 +37,27 @@ import numpy as np
 import torch
 
 from ..bayes import (batched_value_and_grad, diagnose, hmc_sample,
-                     hmc_sample_host_looped, make_logposterior,
-                     make_minibatch_value_and_grad, nuts_sample,
-                     nuts_sample_host_looped, nuts_sample_static,
-                     reduced_dim, sgld_sample)
+                     make_logposterior, make_minibatch_value_and_grad,
+                     nuts_sample, nuts_sample_static, reduced_dim,
+                     sgld_sample)
 from ..data.datasets import synthetic_gp_rff
 from ..models.params import init_params, pack_params
 from .boston_housing import RESULTS
 
 D, S, M = 8, 20, 50
-LEGS = ("hmc", "nuts", "nuts_host", "nuts_static", "sgld_b256")
+LEGS = ("hmc", "nuts", "nuts_static", "sgld_b256")
 
 
 def legs(args, logpost, X, y):
-    """``{name: run(init, generator) -> result}`` of the mode's legs."""
+    """``{name: run(init, generator) -> result}`` of the legs."""
     w, n = args.warmup, args.samples
-    hmc = hmc_sample_host_looped if args.mode == "host" else hmc_sample
-    out = {"hmc": lambda q, g: hmc(logpost, q, g, num_warmup=w,
-                                   num_samples=n, num_integration_steps=16,
-                                   init_step_size=0.003)}
+    out = {"hmc": lambda q, g: hmc_sample(
+        logpost, q, g, num_warmup=w, num_samples=n,
+        num_integration_steps=16, init_step_size=0.003)}
     if not args.skip_nuts:
-        nuts_leg = "nuts_host" if args.mode == "host" else "nuts"
-        nuts = nuts_sample_host_looped if args.mode == "host" else nuts_sample
-        out[nuts_leg] = lambda q, g: nuts(logpost, q, g, num_warmup=w,
-                                          num_samples=n, max_depth=6,
-                                          init_step_size=0.003)
+        out["nuts"] = lambda q, g: nuts_sample(
+            logpost, q, g, num_warmup=w, num_samples=n, max_depth=6,
+            init_step_size=0.003)
         out["nuts_static"] = lambda q, g: nuts_sample_static(
             logpost, q, g, num_warmup=w, num_samples=n, depth=5,
             init_step_size=0.003)
@@ -88,7 +85,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--n", type=int, default=2048)
     ap.add_argument("--samples", type=int, default=100)
     ap.add_argument("--warmup", type=int, default=100)
-    ap.add_argument("--mode", choices=["fused", "host"], default="fused")
+    ap.add_argument("--mode", choices=["fused", "host"], default="fused",
+                    help="JAX's; one and the same host loop here")
     ap.add_argument("--skip-nuts", action="store_true")
     ap.add_argument("--legs", default=None,
                     help="comma-separated subset of " + ",".join(LEGS))
@@ -123,7 +121,7 @@ def main(argv=None) -> dict:
         accept = float(getattr(res, "accept_rate", float("nan")))
         grads = gradients(name, res, args)
         results[name] = {
-            "rhat_logdensity": diag.rhat_logdensity, "mode": args.mode,
+            "rhat_logdensity": diag.rhat_logdensity,
             "samples_per_s": draws.shape[0] * args.chains / dt,
             "min_ess_bulk_per_s": diag.min_ess_bulk / dt,
             "min_ess_bulk": diag.min_ess_bulk,

@@ -20,8 +20,8 @@ before the legs builds the kernels.
 
     python -m scfgp_tpu_torch.experiments.sgld_scale [--n 1000000]
         [--d 256] [--chains 4] [--warmup 20] [--samples 50]
-        [--ula-warmup W] [--ula-samples N] [--streaming-block 16384]
-        [--legs psgld-b4096,...] [--seed 0] [--cpu] [--out DIR]
+        [--streaming-block 16384] [--legs psgld-b4096,...] [--seed 0]
+        [--cpu] [--out DIR]
 
 One JSON line for the configuration and one a leg; writes
 ``<out>/sgld_scale.json`` (default
@@ -41,6 +41,22 @@ from ..bayes import make_minibatch_value_and_grad, reduced_dim, sgld_sample
 from ..models.params import init_params, pack_params
 from .boston_housing import RESULTS
 
+BATCHES = (4096, 16384)  # the pSGLD legs' minibatch rows
+
+
+def problem(n, d, s, m, chains, seed, dev):
+    """X (n, d) uniform and y (n,) standard normal, made on ``dev`` from
+    ``seed``, and ``chains`` initial positions (chains, P)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.rand((n, d), generator=gen, device=dev)
+    y = torch.randn((n,), generator=gen, device=dev)
+    pgen = torch.Generator().manual_seed(seed + 1)
+    P = reduced_dim(d, s, m)
+    init = torch.stack([pack_params(init_params(pgen, d, s, m))[:P]
+                        for _ in range(chains)]).to(dev)
+    return X, y, init
+
+
 def _sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize()
@@ -55,14 +71,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--chains", type=int, default=4)
     ap.add_argument("--samples", type=int, default=50)
     ap.add_argument("--warmup", type=int, default=20)
-    ap.add_argument("--ula-samples", type=int, default=None,
-                    help="the ULA leg's samples (default: --samples)")
-    ap.add_argument("--ula-warmup", type=int, default=None,
-                    help="the ULA leg's warmup (default: --warmup)")
     ap.add_argument("--streaming-block", type=int, default=16384)
     ap.add_argument("--step-size", type=float, default=1e-6)
-    ap.add_argument("--batches", type=int, nargs=2, default=[4096, 16384],
-                    help="the two pSGLD legs' minibatch rows")
     ap.add_argument("--legs", default=None,
                     help="comma-separated subset of the legs")
     ap.add_argument("--seed", type=int, default=0)
@@ -72,30 +82,21 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = torch.device("cpu" if args.cpu else "cuda")
     D, S, M, n, C = args.d, args.sparsity, args.nfeats, args.n, args.chains
-    P = reduced_dim(D, S, M)
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    X = torch.rand((n, D), generator=gen, device=dev)
-    y = torch.randn((n,), generator=gen, device=dev)
-    pgen = torch.Generator().manual_seed(args.seed + 1)
-    init = torch.stack([pack_params(init_params(pgen, D, S, M))[:P]
-                        for _ in range(C)]).to(dev)
-    out = {"n": n, "d": D, "s": S, "m": M, "dim": P, "chains": C,
+    X, y, init = problem(n, D, S, M, C, args.seed, dev)
+    out = {"n": n, "d": D, "s": S, "m": M, "dim": init.shape[1], "chains": C,
            "samples": args.samples, "warmup": args.warmup,
            "device": str(dev), "legs": []}
     print(json.dumps({"config": out}), flush=True)
     make_minibatch_value_and_grad(X[:64], y[:64], D, S, M, 0)(init, None)
     outdir = args.out or os.path.join(RESULTS, "hmc")
     os.makedirs(outdir, exist_ok=True)
-    b1, b2 = args.batches
-    plan = [(f"psgld-b{b1}", b1, 0, args.warmup, args.samples),
-            (f"psgld-b{b2}", b2, 0, args.warmup, args.samples),
-            ("ula-streaming", 0, args.streaming_block,
-             args.warmup if args.ula_warmup is None else args.ula_warmup,
-             args.samples if args.ula_samples is None else args.ula_samples)]
+    plan = [(f"psgld-b{b}", b, 0) for b in BATCHES]
+    plan.append(("ula-streaming", 0, args.streaming_block))
     if args.legs:
         wanted = {s.strip() for s in args.legs.split(",")}
         plan = [leg for leg in plan if leg[0] in wanted]
-    for tag, batch, block, warmup, samples in plan:
+    warmup, samples = args.warmup, args.samples
+    for tag, batch, block in plan:
         vg = make_minibatch_value_and_grad(X, y, D, S, M, batch,
                                            streaming_block=block)
         _sync(dev)

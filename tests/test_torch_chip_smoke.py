@@ -122,30 +122,31 @@ def test_kernel_ab_refuses_to_run_without_a_card(capsys):
 
 def test_phase_14_keeps_its_shapes_and_budgets():
     """Phase 14: the streaming log posterior at the campaign's kin8nm width
-    in blocks of 1024 (7 of the 6553 rows, the last ragged) at 1 and 32
-    chains; fit_bayes(hmc) streaming from the MAP at 20 + 20; sgld_scale's
-    ULA leg cut to 5 + 15 (its pSGLD legs at the JAX budgets, the
-    driver's defaults); the dynamic NUTS and the host-looped HMC at 8
-    chains, max_depth 6, 30 + 30, the host-looped NUTS at 10 + 10;
-    bench_hmc at 10 + 10; the campaign --tiny on co2, seed 0, every
-    arm."""
-    from scfgp_tpu_torch.experiments import bayes_predictive
+    in blocks of 1024 (7 of the 6553 rows, the last ragged) at 1, 8 and
+    32 chains; fit_bayes(hmc) streaming from the MAP at 20 + 20;
+    sgld_scale's ULA leg cut to 5 + 15 (its pSGLD legs at the JAX budgets,
+    the driver's defaults), and each leg's estimator on two 16384-row
+    blocks of its data; the dynamic NUTS at 8 chains, max_depth 6, 30 +
+    30, the host-looped NUTS and HMC 2 transitions each; bench_hmc at 10 +
+    10; the campaign --tiny on co2, seed 0, every arm."""
+    from scfgp_tpu_torch.experiments import bayes_predictive, sgld_scale
     assert chip_smoke.BAYES_MODEL == dict(sparsity=20, nfeats=50)
     assert chip_smoke.STREAM_BAYES_BLOCK == 1024
     assert chip_smoke.stream_blocks(6553) == 7
-    assert chip_smoke.STREAM_BAYES_CHAINS == (1, 32)
+    assert chip_smoke.STREAM_BAYES_CHAINS == (1, 8, 32)
     fit = chip_smoke.STREAM_FIT
     assert (fit["sampler"], fit["chain_init"], fit["streaming_block"],
             fit["num_warmup"], fit["num_samples"]) == ("hmc", "map", 1024,
                                                        20, 20)
-    assert chip_smoke.SGLD_SCALE_ARGS == ["--ula-warmup", "5",
-                                          "--ula-samples", "15"]
+    assert chip_smoke.ULA_ARGS == ["--warmup", "5", "--samples", "15"]
+    assert sgld_scale.BATCHES == (4096, 16384)
+    assert chip_smoke.SGLD_CHECK_ROWS == 2 * 16384
     assert chip_smoke.DYNAMIC_NUTS == dict(num_warmup=30, num_samples=30,
                                            max_depth=6, init_step_size=0.003)
     assert chip_smoke.HOST_NUTS == dict(chip_smoke.DYNAMIC_NUTS,
-                                        num_warmup=10, num_samples=10)
+                                        num_warmup=0, num_samples=2)
     assert (chip_smoke.HOST_HMC["num_warmup"],
-            chip_smoke.HOST_HMC["num_samples"]) == (30, 30)
+            chip_smoke.HOST_HMC["num_samples"]) == (0, 2)
     assert chip_smoke.BENCH_HMC_ARGS == ["--warmup", "10", "--samples", "10"]
     assert chip_smoke.CAMPAIGN_ARGS == ["--tiny", "--datasets", "co2",
                                         "--seeds", "1"]

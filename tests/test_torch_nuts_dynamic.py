@@ -169,7 +169,7 @@ def test_a_stopped_chain_is_frozen_while_the_others_build():
 
 def test_bench_hmc_driver_runs_every_leg_on_the_cpu(tmp_path, monkeypatch):
     """experiments/bench_hmc.py --cpu at a tiny size: one line a leg with
-    its fields; --mode host takes the host-looped entries."""
+    its fields; --mode host, JAX's, runs the same legs."""
     from scfgp_tpu_torch.experiments import bench_hmc
     monkeypatch.setattr(bench_hmc, "S", 2)
     monkeypatch.setattr(bench_hmc, "M", 4)
@@ -184,7 +184,7 @@ def test_bench_hmc_driver_runs_every_leg_on_the_cpu(tmp_path, monkeypatch):
     assert 1.0 <= out["nuts"]["mean_depth"] <= 6.0
     host = bench_hmc.main(["--cpu", "--n", "120", "--chains", "3",
                            "--warmup", "2", "--samples", "2", "--mode",
-                           "host", "--legs", "hmc,nuts_host",
+                           "host", "--legs", "hmc,nuts",
                            "--out", str(tmp_path)])
-    assert set(host) == {"hmc", "nuts_host"}
+    assert set(host) == {"hmc", "nuts"}
     assert (tmp_path / "bench_hmc.json").exists()

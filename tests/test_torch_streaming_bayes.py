@@ -271,9 +271,10 @@ def test_campaign_driver_runs_its_arms_on_the_cpu(tmp_path, monkeypatch):
     from scfgp_tpu_torch.experiments import bayes_predictive as bpd
     monkeypatch.setitem(bpd.DATASETS, "boston",
                         dict(bpd.DATASETS["boston"], S=2, M=4))
+    monkeypatch.setattr(bpd, "BAYES", {a: bpd.BAYES[a]
+                                       for a in ("hmc", "sgld")})
     out = bpd.main(["--cpu", "--tiny", "--datasets", "boston", "--seeds",
-                    "1", "--arms", "map,ensemble,hmc,sgld",
-                    "--out", str(tmp_path)])
+                    "1", "--out", str(tmp_path)])
     arms = out["boston"]["rows"][0]["arms"]
     assert set(arms) == {"map", "ensemble", "hmc", "sgld"}
     for arm in ("hmc", "sgld"):
@@ -283,28 +284,28 @@ def test_campaign_driver_runs_its_arms_on_the_cpu(tmp_path, monkeypatch):
         assert r["NMSE_recal"] == r["NMSE"]  # recalibration moves the std
     assert set(out["boston"]["summary"]) == set(arms)
     assert (tmp_path / "results_tiny.json").exists()
-    with pytest.raises(SystemExit):
-        bpd.main(["--arms", "map,mala"])
 
 
-def test_sgld_scale_driver_runs_its_legs_on_the_cpu(tmp_path):
+def test_sgld_scale_driver_runs_its_legs_on_the_cpu(tmp_path, monkeypatch):
     """experiments/sgld_scale.py --cpu at a tiny size: the two pSGLD legs
-    and the streaming ULA leg, each with its fields."""
+    and the streaming ULA leg, each with its fields; --legs picks one."""
     from scfgp_tpu_torch.experiments import sgld_scale
-    out = sgld_scale.main(["--cpu", "--n", "3000", "--d", "4",
-                           "--sparsity", "2", "--nfeats", "3", "--chains",
-                           "2", "--warmup", "2", "--samples", "3",
-                           "--ula-warmup", "1", "--ula-samples", "2",
-                           "--streaming-block", "1024", "--batches", "64",
-                           "256", "--out", str(tmp_path)])
+    monkeypatch.setattr(sgld_scale, "BATCHES", (64, 256))
+    args = ["--cpu", "--n", "3000", "--d", "4", "--sparsity", "2",
+            "--nfeats", "3", "--chains", "2", "--streaming-block", "1024",
+            "--out", str(tmp_path)]
+    out = sgld_scale.main(args + ["--warmup", "2", "--samples", "3"])
     assert out["dim"] == 3 + 4 * 2 + 3 * 2
     assert [r["leg"] for r in out["legs"]] == ["psgld-b64", "psgld-b256",
                                                "ula-streaming"]
     for r in out["legs"]:
         assert r["draws_per_s"] > 0 and r["logdensity_finite"]
         assert r["nonfinite"] == 0
-    assert out["legs"][-1]["samples"] == 2
     assert (tmp_path / "sgld_scale.json").exists()
+    ula = sgld_scale.main(args + ["--legs", "ula-streaming", "--warmup",
+                                  "1", "--samples", "2"])
+    assert [(r["leg"], r["warmup"], r["samples"]) for r in ula["legs"]] == [
+        ("ula-streaming", 1, 2)]
 
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():
