@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, streaming, Cholesky, sweep,
-Bayes and command-line paths on one card.
+Bayes, command-line and parallel paths on one card.
 
     python3 chip_smoke.py
 
@@ -116,12 +116,27 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    width, 8 chains, max_depth 6: accept rate, depths, divergences and K1b
    launches against 2^d a transition; 14e experiments/bench_hmc.py at 10 +
    10; 14f experiments/bayes_predictive.py --tiny on co2, seed 0, every
-   arm: each finite Bayes arm's recalibrated MNLP below its raw one.
+   arm: each finite Bayes arm's recalibrated MNLP below its raw one;
+15. the parallel layer (``parallel/``), all in turn: 15a ``fit_fast(mesh=
+   make_mesh())`` in a world of one rank over NCCL in this process,
+   bitwise ``fit_fast()`` at the kin8nm protocol with the same launches;
+   15b two ranks spawned on the card (``parallel/launch.py``) over gloo,
+   which stages CUDA tensors through host memory inside its collectives:
+   the DP loss and gradient at kin8nm width against one rank's at phase
+   6's bounds, ``loss_fn_streaming(axis_name=)`` at N=1e6, D=256, S=56,
+   M=200, block 16384 (5e5 rows a rank) on both routes against one
+   rank's stream at phase 9's, ``tp_loss`` on a (1, 2) mesh over one
+   block at phase 6's, ``fit_fast(mesh=)`` at the kin8nm protocol within
+   phase 7's NMSE bound of 15a's, and ``fit_fast_batch(mesh=)`` of 3
+   boston trials bitwise unsharded (every product past Phi per trial);
+   each rank's digests equal; 15c experiments/synthetic_scaling.py at 1
+   and 2 ranks (two ranks share the card: steps/s, no scaling result).
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
 and GEMM routes, the crossover, the posterior through K3, and each path of
-phases 11 to 14) and read just after;
+phases 11 to 15; in 15b and 15c each rank counts its own launches and
+hands them back) and read just after;
 every training phase must launch K1f and K1b, the streaming kernel route
 K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f nor K2b,
 the crossover K4 and K3, the posterior K3, the Bayes paths K1f and K1b but
@@ -2125,6 +2140,331 @@ def cli_serving_phase(launches):
     say("cli_serving", seconds=time.perf_counter() - t)
 
 
+# Phase 15: the parallel layer.  15a a world of one rank over NCCL in this
+# process; 15b PARALLEL_RANKS ranks spawned on the one card over gloo (NCCL
+# refuses two ranks on one device), after phase 2 built the kernels, at
+# kin8nm width (DP loss and gradient, fit_fast(mesh)), BASELINE.json's
+# multi-host width (streaming, 5e5 rows a rank, both routes), boston
+# (fit_fast_batch(mesh) of PARALLEL_BATCH trials) and the streaming width
+# on a (1, 2) mesh (TP, S+M = 256, one block of rows); 15c the scaling
+# driver at 1 and 2 ranks.  Budget: ~90 s.
+PARALLEL_RANKS = 2
+PARALLEL_BATCH = 3
+TP_MESH = (1, 2)
+SCALING_ARGS = ["--ranks", "1", "2"]
+
+
+def parallel_world1_phase(launches, data):
+    """15a: ``fit_fast(mesh=make_mesh())`` in a world of one rank over
+    NCCL, in this process, against ``fit_fast()`` at the kin8nm protocol:
+    params and every metric but the wall time bitwise, the same K1f and
+    K1b launches.  Returns the plain model."""
+    import torch.distributed as dist
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.parallel import launch, make_mesh
+    Xt, yt, Xv, yv = data
+
+    def fit(**extra):
+        m = SCFGP(**KIN8NM_MODEL, seed=SEED, device="cuda")
+        m.fit_fast(Xt, yt, Xv, yv, **FIT_FAST_KW, **extra)
+        return m
+
+    launches.start()
+    plain = fit()
+    counts = launches.read("15a fit_fast")
+    with launch.local_world("cuda"):
+        backend = dist.get_backend()
+        launches.start()
+        meshed = fit(mesh=make_mesh())
+        mesh_counts = launches.read("15a fit_fast(mesh), 1 rank")
+    evals_equal = all(plain.evals[k][1] == meshed.evals[k][1]
+                      for k in plain.evals if k != "TIME(s)")
+    same = {k: counts[k] == mesh_counts[k] for k in ("phi_fwd", "phi_bwd")}
+    say("parallel_world1", backend=backend,
+        params_bitwise=params_equal(plain.params, meshed.params),
+        post_bitwise=params_equal(plain.post, meshed.post),
+        evals_bitwise=evals_equal, launches=counts,
+        mesh_launches=mesh_counts, NMSE=plain.evals["NMSE"][1][-1],
+        iterations=len(plain.evals["COST"][1]))
+    check(backend == "nccl", f"15a: a world of one joined over {backend}")
+    check(params_equal(plain.params, meshed.params) and evals_equal
+          and params_equal(plain.post, meshed.post),
+          "15a: fit_fast(mesh) in a world of one is not fit_fast bitwise")
+    check(all(same.values()), f"15a: launches differ: {counts} against "
+          f"{mesh_counts}")
+    return plain
+
+
+def digest(tensors):
+    """A hash of the tensors' bytes: equal digests, bitwise equal tensors."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def parallel_config(device="cuda"):
+    """15b's shapes and budgets, as ``parallel_rank_checks`` takes them."""
+    return dict(
+        device=device, need_kernels=device == "cuda",
+        dp=dict(model=KIN8NM_MODEL, rows=None),
+        fit=dict(model=KIN8NM_MODEL, rows=None, kw=FIT_FAST_KW),
+        stream=dict(N=STREAM["N"], D=STREAM["D"], S=STREAM["S"],
+                    M=STREAM["M"], block=STREAM["block"]),
+        tp=dict(mesh=TP_MESH, rows=STREAM["block"]),
+        batch=dict(B=PARALLEL_BATCH, model=dict(sparsity=20, nfeats=30),
+                   rows=None))
+
+
+def parallel_rank_checks(cfg):
+    """15b, one rank: each check against the single-rank port on the same
+    inputs (rank 0 computes the references), with its own launch counts
+    (a path's counts set to 0 just before it and read just after)."""
+    import torch.distributed as dist
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_boston, load_kin8nm
+    from scfgp_tpu_torch.experiments.boston_housing import OPT
+    from scfgp_tpu_torch.models.model import fit_fast_batch
+    from scfgp_tpu_torch.models.objective import loss_and_grad
+    from scfgp_tpu_torch.models.params import SCFGPParams, init_params
+    from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
+                                              cholesky_inverse_cuda)
+    from scfgp_tpu_torch.ops.gram import (sufficient_stats_bwd_cuda,
+                                          sufficient_stats_cuda)
+    from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
+                                         fourier_features_cuda)
+    from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
+    from scfgp_tpu_torch.parallel import (make_mesh, make_mesh2d,
+                                          shard_rows, tp_loss_and_grad)
+
+    dev = torch.device(cfg["device"])
+    rank, W = dist.get_rank(), dist.get_world_size()
+    need = ("phi_fwd", "phi_bwd") if cfg["need_kernels"] else ()
+    launches = Launches(phi_fwd=fourier_features_cuda,
+                        phi_bwd=fourier_features_bwd_cuda,
+                        gram_fwd=sufficient_stats_cuda,
+                        gram_bwd=sufficient_stats_bwd_cuda,
+                        cholesky=cholesky_cuda,
+                        cholesky_inverse=cholesky_inverse_cuda)
+    mesh = make_mesh()
+    data = mesh.group("data")
+    out = {"rank": rank, "world": W, "backend": dist.get_backend()}
+    times = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def compare(got, ref):
+        (c, _), g = got
+        (c0, _), g0 = ref
+        return dict(cost=float(c), cost_rel_err=abs(float(c) - float(c0))
+                    / abs(float(c0)), grad_rel_err=grad_errors(g, g0))
+
+    # (1) the DP loss and gradient at kin8nm width
+    t = time.perf_counter()
+    Xt, yt, Xv, yv, _ = load_kin8nm(prop=0.8, seed=0)
+    rows = cfg["dp"]["rows"]
+    Xt, yt = Xt[:rows], yt[:rows]
+    m = SCFGP(**cfg["dp"]["model"], seed=SEED, device=dev)
+    m.set_data(Xt, yt)
+    ref = loss_and_grad(m.params, m.X, m.y) if rank == 0 else None
+    Xs, ys, ws = shard_rows(mesh, m.X, m.y)
+    launches.start()
+    got = loss_and_grad(m.params, Xs, ys, ws, axis_name=data)
+    sync()
+    counts = launches.read("15b dp", need=need)
+    out["dp"] = dict(rows=int(Xs.shape[0]), launches=counts,
+                     digest=digest(got[1]))
+    if rank == 0:
+        out["dp"].update(compare(got, ref))
+    times["dp"] = time.perf_counter() - t
+
+    # (2) streaming at the multi-host width, both routes
+    t = time.perf_counter()
+    st = cfg["stream"]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    X = torch.rand((st["N"], st["D"]), generator=gen, device=dev)
+    y = torch.randn((st["N"],), generator=gen, device=dev)
+    p0 = SCFGPParams(*[v.to(dev) for v in init_params(
+        torch.Generator().manual_seed(SEED), st["D"], st["S"], st["M"])])
+    routes = ("kernel", "gemm")
+    ref = ({r: loss_and_grad_streaming(p0, X, y, block_size=st["block"],
+                                       stats_impl=r) for r in routes}
+           if rank == 0 else None)
+    Xs, ys, ws = shard_rows(mesh, X, y)
+    Xs, ys, ws = Xs.clone(), ys.clone(), ws.clone()
+    X_tp, y_tp = X[:cfg["tp"]["rows"]].clone(), y[:cfg["tp"]["rows"]].clone()
+    del X, y
+    out["stream"] = {}
+    for r in routes:
+        launches.start()
+        got = loss_and_grad_streaming(p0, Xs, ys, ws, block_size=st["block"],
+                                      stats_impl=r, axis_name=data)
+        sync()
+        k2 = ("gram_fwd", "gram_bwd") if cfg["need_kernels"] else ()
+        counts = launches.read(
+            f"15b streaming {r}", need=need + (k2 if r == "kernel" else ()),
+            none=CHOL_KERNELS + (() if r == "kernel" else
+                                 ("gram_fwd", "gram_bwd")))
+        out["stream"][r] = dict(rows=int(Xs.shape[0]), launches=counts,
+                                digest=digest(got[1]))
+        if rank == 0:
+            out["stream"][r].update(compare(got, ref[r]))
+    del Xs, ys, ws, ref
+    times["stream"] = time.perf_counter() - t
+
+    # (3) TP on a (1, 2) mesh at the streaming width
+    t = time.perf_counter()
+    mesh2 = make_mesh2d(*cfg["tp"]["mesh"])
+    ref = loss_and_grad(p0, X_tp, y_tp) if rank == 0 else None
+    X2, y2, w2 = shard_rows(mesh2, X_tp, y_tp)
+    launches.start()
+    got = tp_loss_and_grad(mesh2, p0, X2, y2, w2)
+    sync()
+    out["tp"] = dict(mesh=list(cfg["tp"]["mesh"]), rows=int(X2.shape[0]),
+                     launches=launches.read("15b tp", need=need),
+                     digest=digest(got[1]))
+    if rank == 0:
+        out["tp"].update(compare(got, ref))
+    del X_tp, y_tp, X2, y2, w2
+    times["tp"] = time.perf_counter() - t
+
+    # (4) fit_fast(mesh=...) at the kin8nm protocol
+    t = time.perf_counter()
+    rows = cfg["fit"]["rows"]
+    launches.start()
+    fm = SCFGP(**cfg["fit"]["model"], seed=SEED, device=dev)
+    fm.fit_fast(Xt[:rows], yt[:rows], Xv, yv, mesh=mesh, **cfg["fit"]["kw"])
+    sync()
+    out["fit_fast"] = dict(launches=launches.read("15b fit_fast(mesh)",
+                                                  need=need),
+                           digest=digest(fm.params),
+                           post_digest=digest(fm.post),
+                           NMSE=fm.evals["NMSE"][1][-1],
+                           MNLP=fm.evals["MNLP"][1][-1],
+                           iterations=len(fm.evals["COST"][1]))
+    times["fit_fast"] = time.perf_counter() - t
+
+    # (5) fit_fast_batch(mesh=...) against unsharded, every product past
+    # Phi per trial, so that a trial's bits do not depend on its batch
+    t = time.perf_counter()
+    bc = cfg["batch"]
+    splits = []
+    for b in range(bc["B"]):
+        Xb, yb, Xbv, ybv = load_boston(seed=b)[:4]
+        splits.append((Xb[:bc["rows"]], yb[:bc["rows"]], Xbv, ybv))
+
+    def batch(**extra):
+        ms = [SCFGP(**bc["model"], seed=b, device=dev)
+              for b in range(bc["B"])]
+        with per_trial_products():
+            fit_fast_batch(ms, splits, **OPT, **extra)
+        return ms
+
+    launches.start()
+    sharded = batch(mesh=mesh)
+    sync()
+    counts = launches.read("15b fit_fast_batch(mesh)", need=need)
+    out["batch"] = dict(B=bc["B"], launches=counts,
+                        digests=[digest(b.params) for b in sharded])
+    if rank == 0:
+        plain = batch()
+        out["batch"].update(
+            bitwise=[params_equal(a.params, b.params)
+                     and a.evals["COST"][1] == b.evals["COST"][1]
+                     and all(a.evals[k][1] == b.evals[k][1]
+                             for k in ("NMSE", "MNLP", "SCORE"))
+                     for a, b in zip(sharded, plain)],
+            iterations=[len(b.evals["COST"][1]) for b in sharded],
+            NMSE=[b.evals["NMSE"][1][-1] for b in sharded])
+    times["batch"] = time.perf_counter() - t
+    out["seconds"] = times
+    return out
+
+
+def parallel_ranks_phase(launches, plain_fit):
+    """15b: ``parallel_rank_checks`` on PARALLEL_RANKS ranks sharing the
+    card over gloo, each check held to its phase's bound, every rank's
+    digests equal, every rank's launch counts recorded."""
+    from scfgp_tpu_torch.parallel import launch
+    t = time.perf_counter()
+    res = launch.run(parallel_rank_checks, PARALLEL_RANKS, parallel_config())
+    seconds = time.perf_counter() - t
+    r0 = res[0]
+    for r in res:
+        for path in ("dp", "tp", "fit_fast", "batch"):
+            launches.by_path[f"15b {path} (rank {r['rank']})"] = \
+                r[path]["launches"]
+        for route, row in r["stream"].items():
+            launches.by_path[f"15b streaming {route} (rank {r['rank']})"] = \
+                row["launches"]
+    same = {k: len({r[k]["digest"] for r in res}) == 1
+            for k in ("dp", "tp", "fit_fast")}
+    same["stream"] = all(len({r["stream"][k]["digest"] for r in res}) == 1
+                         for k in r0["stream"])
+    same["batch"] = len({tuple(r["batch"]["digests"]) for r in res}) == 1
+    nmse, nmse_1 = r0["fit_fast"]["NMSE"], plain_fit.evals["NMSE"][1][-1]
+    say("parallel_ranks", ranks=PARALLEL_RANKS, backend=r0["backend"],
+        staging="gloo copies CUDA tensors through host memory inside its "
+                "collectives; the port stages nothing itself",
+        seconds=seconds, rank_seconds=r0["seconds"], digests_equal=same,
+        dp=r0["dp"], stream=r0["stream"], tp=r0["tp"],
+        fit_fast=dict(r0["fit_fast"], single_rank_NMSE=nmse_1),
+        batch=r0["batch"])
+    check(r0["backend"] == "gloo", f"15b: ranks joined over {r0['backend']}")
+    check(all(same.values()), f"15b: ranks disagree: {same}")
+    for name, row in (("dp", r0["dp"]), ("tp", r0["tp"])):
+        check(row["cost_rel_err"] <= COST_TOL
+              and max(row["grad_rel_err"].values()) <= GRAD_TOL,
+              f"15b: {name} differs from the single rank: {row}")
+    for route, row in r0["stream"].items():
+        check(row["cost_rel_err"] <= STREAM_COST_TOL
+              and max(row["grad_rel_err"].values()) <= STREAM_GRAD_TOL,
+              f"15b: streaming {route} differs from the single rank: {row}")
+    check(abs(nmse - nmse_1) <= FIT_NMSE_TOL * nmse_1,
+          f"15b: fit_fast(mesh) NMSE {nmse} vs one rank's {nmse_1}")
+    check(all(r0["batch"]["bitwise"]),
+          f"15b: fit_fast_batch(mesh) differs from unsharded: "
+          f"{r0['batch']['bitwise']}")
+
+
+def parallel_scaling_phase(launches, workdir):
+    """15c: experiments/synthetic_scaling.py at 1 and 2 ranks on the one
+    card; steps/s only (two ranks share the card: no scaling result)."""
+    from scfgp_tpu_torch.experiments import synthetic_scaling
+    rep = synthetic_scaling.main(SCALING_ARGS + ["--out", workdir])
+    for pt in rep["points"]:
+        launches.by_path[f"15c scaling, {pt['ranks']} rank(s) (rank 0)"] = \
+            dict(pt["launches"], gram_fwd=0, gram_bwd=0, cholesky=0,
+                 cholesky_inverse=0)
+    say("parallel_scaling", points=rep["points"])
+    check(all(pt["costs_equal"] and pt["launches"]["phi_fwd"] > 0
+              and pt["launches"]["phi_bwd"] > 0 for pt in rep["points"]),
+          f"15c: a point's ranks disagree or launched no kernel: "
+          f"{rep['points']}")
+
+
+def parallel_phase(launches, workdir):
+    """Phase 15, 15a-15c in turn."""
+    from scfgp_tpu_torch.data.datasets import load_kin8nm
+    Xt, yt, Xv, yv, _ = load_kin8nm(prop=0.8, seed=0)
+    t = time.perf_counter()
+    times = {}
+    t0 = time.perf_counter()
+    plain = parallel_world1_phase(launches, (Xt, yt, Xv, yv))
+    times["15a"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for name, fn, *args in (("15b", parallel_ranks_phase, launches, plain),
+                            ("15c", parallel_scaling_phase, launches,
+                             workdir)):
+        t0 = time.perf_counter()
+        fn(*args)
+        times[name] = time.perf_counter() - t0
+    say("parallel", seconds=time.perf_counter() - t, parts_s=times)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2642,6 +2982,11 @@ def main():
     rest_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_bayes_rest_")
     bayes_rest_phase(launches, rest_dir.name)
     rest_dir.cleanup()
+
+    # 15. the parallel layer ---------------------------------------------
+    par_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_")
+    parallel_phase(launches, par_dir.name)
+    par_dir.cleanup()
 
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",

@@ -4,8 +4,8 @@ Port of ``scfgp_tpu/config.py:1-88``: the same four dataclasses with the
 same fields and defaults, which reproduce the reference's ctor kwargs
 (``reference: SCFGP/SCFGP.py:33-35``) and ``optimize`` defaulting
 (``SCFGP.py:185-202``).  ``make_model`` also takes the torch device the
-model lives on.  ``MeshConfig`` is data only: the port has no mesh yet
-(ROADMAP.md Queue 1 item 8).
+model lives on.  ``MeshConfig`` is data only, as in the JAX package: a
+mesh is built by ``parallel/mesh.py`` (``make_mesh``, ``make_mesh2d``).
 """
 
 from __future__ import annotations

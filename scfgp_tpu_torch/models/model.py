@@ -23,9 +23,11 @@ all chains (rungs, Monte-Carlo samples) as the trial axis of one batched
 log posterior (``bayes/``), dense or over the streaming objective
 (``streaming_block``), and ``predict_bayes`` mixes over the draws.
 
-Not ported yet, raising ``NotImplementedError`` with the ROADMAP.md item
-that brings it: ``mesh=`` (of ``optimize_fused`` and
-``fit_fast_batch``).  The JAX
+Parallelism (``parallel/``): ``optimize_fused(mesh=...)`` (and
+``fit_fast``) trains one model data-parallel, its rows split over the
+mesh's ``data`` ranks; ``fit_fast_batch(mesh=...)`` splits the trials
+over them.  Every rank calls the same method on the same data, and every
+rank's model ends with the same params, posterior and metrics.  The JAX
 package's non-finite refit under an auto-resolved 1-pass TPU matmul
 precision (``_precision_fallback_needed``, ``model.py:1488-1518``, and
 its per-trial form in ``fit_fast_batch``, ``:310-322``) has no
@@ -48,6 +50,9 @@ from ..data.scaler import Scaler, backward_transform_stateless
 from ..opt.fused_loop import (fused_optimize, fused_optimize_batch,
                               set_generator_state)
 from ..opt.optimizers import algos, make_optimizer, tree_add, tree_map
+from ..ops.collectives import gather_rows
+from ..parallel.mesh import DATA_AXIS, replicated, shard_rows
+from ..parallel.multihost import is_coordinator
 from ..utils.logging import MetricLogger
 from ..utils.metrics import new_evals_dict, regression_metrics
 from .objective import (Posterior, feature_block, loss_and_grad, loss_fn,
@@ -64,10 +69,29 @@ DEFAULT_OPT = {
 }
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to scfgp_tpu_torch yet: ROADMAP.md Queue 1 "
-        f"{item}")
+def _trial_slice(mesh, B):
+    """This rank's trials of ``fit_fast_batch(mesh=...)``: B padded to a
+    multiple of the mesh's ``data`` ranks by repeating the last trial, then
+    split into contiguous blocks (``scfgp_tpu/models/model.py:206-224``)."""
+    n = mesh.shape[DATA_AXIS]
+    per = -(-B // n)
+    padded = list(range(B)) + [B - 1] * (per * n - B)
+    i = mesh.index(DATA_AXIS)
+    return padded[i * per:(i + 1) * per]
+
+
+def _gather_trials(mesh, tensors, B):
+    """Every rank's trials of ``tensors`` (each with a leading trial axis),
+    in trial order, cut to the B real trials.  A batch of column-major
+    matrices (L and L⁻¹, as LAPACK and cuSOLVER leave them) stays
+    column-major, so later products round as in the unsharded run."""
+    group = mesh.group(DATA_AXIS)
+
+    def gather(t):
+        if t.dim() >= 3 and not t.is_contiguous() and t.mT.is_contiguous():
+            return gather_rows(t.mT, group).mT[:B]
+        return gather_rows(t, group)[:B]
+    return [gather(t) for t in tensors]
 
 
 def fit_fast_batch(models, datasets, **opt_params):
@@ -90,12 +114,17 @@ def fit_fast_batch(models, datasets, **opt_params):
     posterior and metrics; ``TIME(s)`` is the batch's wall time split
     evenly, an estimate.  Returns the models.
 
-    ``mesh=`` raises ``NotImplementedError``: trial parallelism over
-    several cards is ROADMAP.md Queue 1 item 8."""
+    ``mesh=``: trial parallelism (``scfgp_tpu/models/model.py:194-224``).
+    Every rank calls this with the same models and data; B is padded to a
+    multiple of the mesh's ``data`` ranks by repeating the last trial, each
+    rank runs its contiguous block of trials through
+    ``fused_optimize_batch``, and the results are gathered, so every rank's
+    models get every trial's.  Each rank's loop stops when its own trials
+    are done; a finished trial is frozen, so its result does not depend on
+    when the others stop."""
     if len(models) != len(datasets):
         raise ValueError("models and datasets must have equal length")
-    if opt_params.pop("mesh", None) is not None:
-        raise _not_ported("fit_fast_batch(mesh=...)", "item 8 (parallel)")
+    mesh = opt_params.pop("mesh", None)
     if not models:
         return models
     has_val = len(datasets[0]) == 4
@@ -121,15 +150,19 @@ def fit_fast_batch(models, datasets, **opt_params):
         for metric in m.evals:
             m.evals[metric][1] = []
     # The draw of optimize_fused, model by model: batched == sequential.
+    seeds = [m._rng.randint(0, 2**31 - 1) for m in models]
+    trials = (list(range(len(models))) if mesh is None
+              else _trial_slice(mesh, len(models)))
+    run_models = [models[i] for i in trials]
     generators = []
-    for m in models:
-        gen = torch.Generator(device=m.device)
-        gen.manual_seed(m._rng.randint(0, 2**31 - 1))
+    for i in trials:
+        gen = torch.Generator(device=m0.device)
+        gen.manual_seed(seeds[i])
         generators.append(gen)
-    params = SCFGPParams(*[torch.stack(leaves)
-                           for leaves in zip(*[m.params for m in models])])
-    X = torch.stack([_trainable(m.X) for m in models])
-    y = torch.stack([_trainable(m.y) for m in models])
+    params = SCFGPParams(*[torch.stack(leaves) for leaves in
+                           zip(*[m.params for m in run_models])])
+    X = torch.stack([_trainable(m.X) for m in run_models])
+    y = torch.stack([_trainable(m.y) for m in run_models])
     basis = m0.extra_basis
 
     def value_and_grad(q):
@@ -143,7 +176,8 @@ def fit_fast_batch(models, datasets, **opt_params):
 
     obj_fn = None
     if has_val and obj != "COST":
-        obj_fn = _batched_validation_objective(models, datasets, obj)
+        obj_fn = _batched_validation_objective(
+            run_models, [datasets[i] for i in trials], obj)
     tx = make_optimizer(algo["algo"], algo.get("algo_params"))
     t0 = time.time()
     res = fused_optimize_batch(
@@ -154,14 +188,23 @@ def fit_fast_batch(models, datasets, **opt_params):
         eval_fn=eval_fn)
     if m0.device.type == "cuda":
         torch.cuda.synchronize(m0.device)
+    params, post = res.params, res.post
+    costs, num_iters = res.cost_history, res.num_iters
+    if mesh is not None:
+        B = len(models)
+        params = SCFGPParams(*_gather_trials(mesh, params, B))
+        post = Posterior(*_gather_trials(mesh, post, B))
+        costs, num_iters = _gather_trials(mesh, (costs, torch.tensor(
+            num_iters, device=costs.device)), B)
+        num_iters = num_iters.tolist()
     wall = time.time() - t0
-    costs = res.cost_history.cpu().numpy()
+    costs = costs.cpu().numpy()
     for i, (m, d) in enumerate(zip(models, datasets)):
-        m.params = SCFGPParams(*[t[i].clone() for t in res.params])
-        m.post = Posterior(*[t[i].clone() for t in res.post])
+        m.params = SCFGPParams(*[t[i].clone() for t in params])
+        m.post = Posterior(*[t[i].clone() for t in post])
         m._stats = None
         m._ensemble = None
-        n = res.num_iters[i]
+        n = num_iters[i]
         m.evals["COST"][1] = costs[i, :n].tolist()
         # An estimate: the B trials ran as one loop, so the batch's wall
         # time is split evenly (and linearly across iterations).
@@ -438,9 +481,10 @@ class SCFGP:
         """Loss WITHOUT update (reference train_func, ``SCFGP.py:134-135``)."""
         basis = self.extra_basis
 
-        def eval_fn(p, X, y):
+        def eval_fn(p, X, y, w=None, axis_name=None):
             with torch.no_grad():
-                return loss_fn(p, X, y, basis_fn=basis)
+                return loss_fn(p, X, y, w, basis_fn=basis,
+                               axis_name=axis_name)
         return eval_fn
 
     def _make_step(self, tx):
@@ -691,10 +735,16 @@ class SCFGP:
         uninterrupted run bitwise.  A fused state written by the JAX package
         carries a threefry key no torch generator can replay, and resuming
         it raises ``ValueError``.  ``recalibrate=True`` ends with
-        ``recalibrate_dispersion()``."""
-        if args.get("mesh") is not None:
-            raise _not_ported("optimize_fused(mesh=...)",
-                              "item 8 (parallel)")
+        ``recalibrate_dispersion()``.
+
+        ``mesh=`` (a ``parallel.Mesh``): data-parallel training
+        (``scfgp_tpu/models/model.py:858-869``).  Every rank calls this on
+        the same data; the rows are padded with zero-weight rows and split
+        over the mesh's ``data`` ranks, the params and the annealing seed
+        are taken from rank 0, and every rank runs the same loop on the
+        all-reduced cost and gradient, so the stop rule and the annealing
+        decide alike everywhere and params, posterior and metrics come back
+        the same on every rank.  Only rank 0 writes checkpoints."""
         resume = bool(args.get("resume", False))
         fts = self._fused_train_state if resume else None
         if resume and not fts:
@@ -720,25 +770,34 @@ class SCFGP:
         for metric in self.evals:
             self.evals[metric][1] = []
 
+        mesh = args.get("mesh")
+        seed = self._rng.randint(0, 2**31 - 1)
+        X, y, w, group = _trainable(self.X), _trainable(self.y), None, None
+        if mesh is not None:
+            X, y, w = shard_rows(mesh, X, y)
+            group = mesh.group(DATA_AXIS)
+            self.params, seed = replicated(mesh)((self.params, torch.tensor(
+                seed, dtype=torch.int64, device=self.device)))
+            seed = int(seed)
         generator = torch.Generator(device=self.device)
-        generator.manual_seed(self._rng.randint(0, 2**31 - 1))
+        generator.manual_seed(seed)
         loop_state = None
         if resume:
             # Checked before the state moves to the device: a JAX key raises.
             set_generator_state(generator, fts["state"].key)
             loop_state = opt_state_from_numpy(fts["state"], self.device)
         tx = make_optimizer(algo["algo"], algo.get("algo_params"))
-        X, y = _trainable(self.X), _trainable(self.y)
         basis = self.extra_basis
 
         def value_and_grad(q):
-            (cost, aux), grads = loss_and_grad(q, X, y, basis_fn=basis)
+            (cost, aux), grads = loss_and_grad(q, X, y, w, basis_fn=basis,
+                                               axis_name=group)
             return (cost, aux.post), grads
 
         eval_loss = self._eval_fn()
 
         def eval_fn(q):
-            cost, aux = eval_loss(q, X, y)
+            cost, aux = eval_loss(q, X, y, w, axis_name=group)
             return cost, aux.post
 
         obj_fn = None
@@ -772,7 +831,8 @@ class SCFGP:
                 record(res, res.done)
                 self.params = res.params  # checkpoint carries best-so-far
                 self.post = res.post
-                self.save(checkpoint_path)
+                if mesh is None or is_coordinator():
+                    self.save(checkpoint_path)
                 if res.done:
                     break
         else:

@@ -18,8 +18,14 @@ backward, and ``loss_and_grad`` is ``jax.value_and_grad(loss_fn,
 has_aux=True)``.  The reference quirks stay: the feature scale uses M, not S+M
 (``SCFGP.py:102``), and the nlml carries ``2 (N - M) a``
 (``SCFGP.py:125-126``).  The JAX package's TPU matrix-unit levers
-(``mm_dtype``, ``mm_precision``) and its ``axis_name`` all-reduce are not
-part of this module.
+(``mm_dtype``, ``mm_precision``) are not part of this module.
+
+Data parallelism: with ``axis_name`` (a process group, or a dimension of
+the mesh of ``parallel/mesh.py``) ``loss_fn`` takes this rank's rows and
+all-reduces the sufficient statistics and the expected-NLL row sum
+(``scfgp_tpu/models/objective.py:361-372``) through the differentiable
+collectives of ``ops/collectives.py``; ``value_and_grad`` then gives the
+exact global gradient on every rank.
 
 Trials: every function here also takes params, X and y (and a posterior)
 with a leading trial axis B, the trials of a batched sweep
@@ -38,6 +44,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops.cholesky import chol_inverse_bwd, cholesky_inverse_ref
+from ..ops.collectives import all_reduce_sum, axis_size, psum
 from ..ops.phi import FourierFeatures
 from .params import SCFGPParams, derive_frequencies, feature_scale
 
@@ -115,6 +122,16 @@ def sufficient_stats(Phi: torch.Tensor, y: torch.Tensor,
                            phiTy=_mv(Phi.mT, w * y),
                            yTy=torch.sum(w * y * y, dim=-1),
                            n=torch.sum(w, dim=-1))
+
+
+def psum_stats(stats: SufficientStats, axis_name) -> SufficientStats:
+    """The statistics summed over the ranks of ``axis_name``
+    (``scfgp_tpu/models/objective.py:194-196``): one all-reduce of the
+    four fields, differentiable."""
+    sizes = [t.numel() for t in stats]
+    flat = psum(torch.cat([t.reshape(-1) for t in stats]), axis_name)
+    return SufficientStats(*(part.view(t.shape) for part, t in zip(
+        torch.split(flat, sizes), stats)))
 
 
 class _CholInverse(torch.autograd.Function):
@@ -205,7 +222,7 @@ def feature_block(p: SCFGPParams, X: torch.Tensor,
 
 def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
                   w: Optional[torch.Tensor] = None,
-                  residual_fit: bool = False):
+                  residual_fit: bool = False, axis_name=None):
     """``loss_fn`` given the feature block ``Phi`` of the training rows.
 
     The data-fit term ``(yᵀy - βᵀβ) / σ²`` is the reference's
@@ -216,25 +233,35 @@ def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
     size ``yᵀy`` no longer divides by a small σ².  In float32 on an H100 at
     kin8nm width the reference's form is off by ~0.5 nat where σ² ~ 1e-3,
     noise that stalls HMC; the residual form is ~1e-2 (PERF.md).
-    Its error is also second order in α's, since α minimises it."""
+    Its error is also second order in α's, since α minimises it.
+    ``axis_name``: the rows are this rank's, and every row sum is
+    all-reduced over that group (module docstring)."""
     y = y.reshape(Phi.shape[:-1])
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
     stats = sufficient_stats(Phi, y, w)
+    if axis_name is not None:
+        stats = psum_stats(stats, axis_name)
     post = solve_posterior(stats, sig2_n)
     mu_f, var_f = latent_moments(Phi, post)
     enll_rows = expected_nll_rows(mu_f, var_f, y, noise)
     if w is not None:
         w = w.reshape(y.shape).to(enll_rows.dtype)
         enll_rows = enll_rows * w
+    enll_sum = torch.sum(enll_rows, dim=-1)
+    if axis_name is not None:
+        enll_sum = psum(enll_sum, axis_name)
     if residual_fit:
         r2 = (mu_f - y) ** 2 if w is None else w * (mu_f - y) ** 2
-        fit = torch.sum(r2, dim=-1) + (sig2_n + EPSILON) * torch.sum(
+        r2_sum = torch.sum(r2, dim=-1)
+        if axis_name is not None:
+            r2_sum = psum(r2_sum, axis_name)
+        fit = r2_sum + (sig2_n + EPSILON) * torch.sum(
             post.alpha * post.alpha, dim=-1)
     else:
         fit = stats.yTy - torch.sum(post.beta * post.beta, dim=-1)
     nlml = (2.0 * torch.sum(post.log_diag_L, dim=-1)
-            + 2.0 * torch.sum(enll_rows, dim=-1)
+            + 2.0 * enll_sum
             + fit / sig2_n
             + 2.0 * (stats.n - p.M) * p.a)
     penalty = kl_penalty(p)
@@ -244,12 +271,15 @@ def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
 
 def loss_fn(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
             w: Optional[torch.Tensor] = None, basis_fn=None,
-            residual_fit: bool = False):
+            residual_fit: bool = False, axis_name=None):
     """SCFGP objective ``cost = (nlml + penalty) / N`` (``SCFGP.py:92-128``
     term by term).  Returns ``(cost, LossAux)``.  ``residual_fit``: see
-    ``loss_from_phi``."""
+    ``loss_from_phi``.  With ``axis_name`` (a process group or a mesh
+    dimension's name) ``X``, ``y`` and ``w`` are this rank's rows, and the
+    statistics and the expected-NLL sum are all-reduced over the group, so
+    the cost is the full batch's on every rank."""
     return loss_from_phi(p, feature_block(p, X, basis_fn), y, w,
-                         residual_fit)
+                         residual_fit, axis_name)
 
 
 def predict_from_phi(p: SCFGPParams, post: Posterior, Phis: torch.Tensor):
@@ -275,25 +305,41 @@ def _leaf(t: torch.Tensor) -> torch.Tensor:
     return (t.clone() if t.is_inference() else t).requires_grad_()
 
 
-def value_and_grad(loss, p: SCFGPParams, *args, **kwargs):
+def value_and_grad(loss, p: SCFGPParams, *args, replicas=None, **kwargs):
     """``((cost, LossAux), grads)`` of ``loss(p, *args, **kwargs)``, with
     ``grads`` an ``SCFGPParams`` of d cost / d p:
     ``jax.value_and_grad(loss, has_aux=True)``.  The gradient is taken by
     ``torch.autograd.grad`` on leaf copies of the params, so nothing
     accumulates in ``.grad``; every output is detached.  A batched cost
     (B,) is differentiated through its sum: each trial's gradient is its
-    own, since trials share nothing."""
+    own, since trials share nothing.
+
+    ``replicas`` (default: the ``axis_name`` keyword, if any): the group
+    over which the cost is replicated.  The cost is divided by the group's
+    size before the backward and the gradient all-reduced over it after,
+    so every rank gets the exact global gradient
+    (``ops/collectives.py``)."""
+    if replicas is None:
+        replicas = kwargs.get("axis_name")
     leaves = SCFGPParams(*map(_leaf, p))
     with torch.enable_grad():
         cost, aux = loss(leaves, *args, **kwargs)
-        grads = torch.autograd.grad(cost.sum(), leaves)
+        total = cost.sum()
+        if replicas is not None:
+            total = total / axis_size(replicas)
+        grads = torch.autograd.grad(total, leaves)
+    if replicas is not None:
+        grads = all_reduce_sum(grads, replicas)
     aux = LossAux(post=Posterior(*(t.detach() for t in aux.post)),
                   nlml=aux.nlml.detach(), penalty=aux.penalty.detach())
     return (cost.detach(), aux), SCFGPParams(*grads)
 
 
 def loss_and_grad(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
-                  w: Optional[torch.Tensor] = None, basis_fn=None):
+                  w: Optional[torch.Tensor] = None, basis_fn=None,
+                  axis_name=None):
     """``value_and_grad`` of ``loss_fn``
-    (``scfgp_tpu/models/objective.py:403``)."""
-    return value_and_grad(loss_fn, p, X, y, w=w, basis_fn=basis_fn)
+    (``scfgp_tpu/models/objective.py:403``); with ``axis_name`` the
+    data-parallel loss and the global gradient, on every rank."""
+    return value_and_grad(loss_fn, p, X, y, w=w, basis_fn=basis_fn,
+                          axis_name=axis_name)

@@ -26,9 +26,11 @@ batched block is one K1f (K1b) launch whatever B, so a batched streaming
 gradient launches them as often as a 1-trial one.  The ``"kernel"`` route
 takes no trial axis: K2f and K2b have none (ROADMAP.md Queue 2).
 
-The JAX package's TPU and mesh levers (``axis_name``, ``feature_impl``,
-``mm_precision``) are not carried, as in the port's ``loss_fn``; data
-parallel streaming waits for the port of ``parallel/``.
+The JAX package's TPU levers (``feature_impl``, ``mm_precision``) are
+not carried, as in the port's ``loss_fn``.  ``axis_name`` is: each rank
+streams its own rows, and pass 1's statistics and pass 2's row sums are
+all-reduced over the group (``scfgp_tpu/ops/streaming.py:109-135``), on
+either route.
 """
 
 from __future__ import annotations
@@ -40,8 +42,10 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.objective import (EPSILON, SufficientStats, LossAux,
                                 expected_nll_rows, kl_penalty,
-                                latent_moments, softplus, solve_posterior,
-                                sufficient_stats, value_and_grad)
+                                latent_moments, psum_stats, softplus,
+                                solve_posterior, sufficient_stats,
+                                value_and_grad)
+from .collectives import psum
 from ..models.params import SCFGPParams, derive_frequencies, feature_scale
 from .gram import SufficientStatsFn
 from .phi import FourierFeatures
@@ -149,7 +153,8 @@ def streaming_posterior(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
 def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
                       w: Optional[torch.Tensor] = None,
                       block_size: int = 4096, stats_impl: str = "gemm",
-                      basis_fn=None, residual_fit: bool = False):
+                      basis_fn=None, residual_fit: bool = False,
+                      axis_name=None):
     """``loss_fn`` with O(block_size) memory: ``(cost, LossAux)``.
 
     ``stats_impl="gemm"`` (the JAX package's ``"xla"``, the default) forms
@@ -160,11 +165,16 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     ``"gemm"``, since K2 has no slot for extra columns.  ``residual_fit``
     takes the data-fit term as ``(Σ w (μ_f - y)² + (σ² + ε)‖α‖²) / σ²``,
     its rows summed in pass 2 (``objective.py::loss_from_phi``).  Params
-    with a trial axis B give cost (B,) (module docstring)."""
+    with a trial axis B give cost (B,) (module docstring).  With
+    ``axis_name`` (a process group or a mesh dimension's name) ``X``, ``y``
+    and ``w`` are this rank's rows and every row sum is all-reduced over
+    the group, as in ``loss_fn``."""
     st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn)
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
     stats = st.stats()
+    if axis_name is not None:
+        stats = psum_stats(stats, axis_name)
     post = solve_posterior(stats, sig2_n)
 
     def enll_block(Xi, yi, wi):
@@ -182,6 +192,10 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     for b in st.blocks:
         e, r2 = _checkpointed(enll_block, *st.rows(b))
         enll_sum, r2_sum = enll_sum + e, r2_sum + r2
+    if axis_name is not None:
+        enll_sum = psum(enll_sum, axis_name)
+        if residual_fit:
+            r2_sum = psum(r2_sum, axis_name)
 
     if residual_fit:
         fit = r2_sum + (sig2_n + EPSILON) * torch.sum(
@@ -201,5 +215,6 @@ def loss_and_grad_streaming(p: SCFGPParams, X: torch.Tensor,
                             y: torch.Tensor, w: Optional[torch.Tensor] = None,
                             **kwargs):
     """``((cost, LossAux), grads)`` of ``loss_fn_streaming``: the step of
-    ``experiments/tpu_streaming_1m.py:49-57`` without the optimizer."""
+    ``experiments/tpu_streaming_1m.py:49-57`` without the optimizer; with
+    ``axis_name`` the global gradient on every rank."""
     return value_and_grad(loss_fn_streaming, p, X, y, w=w, **kwargs)

@@ -153,3 +153,56 @@ def test_phase_14_keeps_its_shapes_and_budgets():
     assert "co2" in bayes_predictive.DATASETS
     assert chip_smoke.STREAM_MIX_TOL <= 1e-3
     assert chip_smoke.ULA_PEAK_BOUND <= 2 << 30
+
+
+def test_phase_15_keeps_its_shapes_and_budgets():
+    """Phase 15: 15a at the kin8nm protocol of phase 7; 15b on two ranks:
+    the streaming width of BASELINE.json's multi-host config (N=1e6,
+    D=256, S=56, M=200, block 16384, 5e5 rows a rank), TP on a (1, 2) mesh
+    at S+M = 256 over one block of rows, fit_fast_batch of 3 boston
+    trials; 15c the scaling driver at 1 and 2 ranks."""
+    cfg = chip_smoke.parallel_config()
+    assert chip_smoke.PARALLEL_RANKS == 2
+    assert cfg["stream"] == dict(N=1_000_000, D=256, S=56, M=200,
+                                 block=16384)
+    assert cfg["stream"]["N"] // chip_smoke.PARALLEL_RANKS == 500_000
+    assert cfg["tp"] == dict(mesh=(1, 2), rows=16384)
+    assert (cfg["stream"]["S"] + cfg["stream"]["M"]) % cfg["tp"]["mesh"][1] \
+        == 0
+    assert cfg["dp"]["model"] == cfg["fit"]["model"] == dict(sparsity=-1,
+                                                             nfeats=269)
+    assert cfg["fit"]["kw"] == chip_smoke.FIT_FAST_KW
+    assert cfg["batch"]["B"] == 3 and cfg["need_kernels"]
+    assert chip_smoke.SCALING_ARGS == ["--ranks", "1", "2"]
+
+
+def test_phase_15b_rank_checks_run_on_two_cpu_ranks():
+    """15b's rank function, rehearsed at a small size on two gloo ranks of
+    the CPU (the plain versions; no kernel to count): every check within
+    its phase's bound, every digest equal across the ranks, the sharded
+    batch bitwise the unsharded one."""
+    from scfgp_tpu_torch.parallel import launch
+    small = dict(sparsity=3, nfeats=8)
+    cfg = chip_smoke.parallel_config("cpu")
+    cfg.update(dp=dict(model=small, rows=300),
+               fit=dict(model=small, rows=300,
+                        kw=dict(chip_smoke.FIT_FAST_KW, max_iter=35)),
+               stream=dict(N=4096, D=16, S=4, M=12, block=512),
+               tp=dict(mesh=(1, 2), rows=512),
+               batch=dict(B=3, model=small, rows=100))
+    assert not cfg["need_kernels"]
+    r0, r1 = launch.run(chip_smoke.parallel_rank_checks, 2, cfg,
+                        device="cpu", threads=1, timeout=300)
+    assert r0["backend"] == "gloo" and r0["world"] == 2
+    for key in ("dp", "tp", "fit_fast"):
+        assert r0[key]["digest"] == r1[key]["digest"], key
+    for row in (r0["dp"], r0["tp"]):
+        assert row["cost_rel_err"] <= chip_smoke.COST_TOL
+        assert max(row["grad_rel_err"].values()) <= chip_smoke.GRAD_TOL
+    for route, row in r0["stream"].items():
+        assert row["digest"] == r1["stream"][route]["digest"]
+        assert row["rows"] == 2048
+        assert row["cost_rel_err"] <= chip_smoke.STREAM_COST_TOL
+        assert max(row["grad_rel_err"].values()) <= chip_smoke.STREAM_GRAD_TOL
+    assert r0["batch"]["digests"] == r1["batch"]["digests"]
+    assert r0["batch"]["bitwise"] == [True] * 3

@@ -232,7 +232,9 @@ def test_import_leaves_jax_out():
             " scfgp_tpu_torch.config, scfgp_tpu_torch.run,"
             " scfgp_tpu_torch.ops.quadrature, scfgp_tpu_torch.data.native,"
             " scfgp_tpu_torch.utils.serving, scfgp_tpu_torch.baselines,"
-            " scfgp_tpu_torch.utils.visualizer, scfgp_tpu_torch.graft_entry;"
+            " scfgp_tpu_torch.utils.visualizer, scfgp_tpu_torch.graft_entry,"
+            " scfgp_tpu_torch.parallel, scfgp_tpu_torch.parallel.launch,"
+            " scfgp_tpu_torch.experiments.synthetic_scaling;"
             "from scfgp_tpu_torch.ops import loss_fn_streaming;"
             "from scfgp_tpu_torch import Visualizer;"
             "bad = [m for m in sys.modules if m == 'jax' or "

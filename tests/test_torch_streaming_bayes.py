@@ -315,7 +315,8 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             " scfgp_tpu_torch.experiments.bayes_predictive,"
             " scfgp_tpu_torch.experiments.bench_hmc,"
             " scfgp_tpu_torch.experiments.sgld_scale,"
-            " scfgp_tpu_torch.experiments.bayes_precision;"
+            " scfgp_tpu_torch.experiments.bayes_precision,"
+            " scfgp_tpu_torch.parallel, scfgp_tpu_torch.parallel.launch;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
             "m.startswith('scfgp_tpu.')];"

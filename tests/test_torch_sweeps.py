@@ -222,8 +222,6 @@ def test_batched_trials_stay_independent():
 
 def test_fit_fast_batch_refuses_mesh_and_mismatched_models():
     splits = _make_splits(2)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        fit_fast_batch([_model(0), _model(1)], splits, mesh=object())
     with pytest.raises(ValueError, match="identical"):
         fit_fast_batch([_model(0), SCFGP(sparsity=3, nfeats=7, seed=1,
                                           device="cpu",

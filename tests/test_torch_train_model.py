@@ -19,7 +19,7 @@ import torch
 
 from scfgp_tpu import SCFGP as JaxSCFGP
 from scfgp_tpu.data.datasets import synthetic_gp_rff
-from scfgp_tpu_torch import SCFGP, fit_fast_batch
+from scfgp_tpu_torch import SCFGP
 from scfgp_tpu_torch.models.params import params_from_numpy
 
 torch.set_num_threads(1)
@@ -186,9 +186,5 @@ def test_parts_not_ported_raise():
     Xt, yt, _, _ = _data()
     m = SCFGP(sparsity=S, nfeats=M, seed=0, device="cpu")
     m.set_data(Xt, yt)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m.optimize_fused(mesh=object(), max_iter=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_fast_batch([m], [(Xt, yt)], mesh=object())
     with pytest.raises(RuntimeError, match="resume"):
         SCFGP(device="cpu").optimize(resume=True)
