@@ -129,8 +129,12 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    block at phase 6's, ``fit_fast(mesh=)`` at the kin8nm protocol within
    phase 7's NMSE bound of 15a's, and ``fit_fast_batch(mesh=)`` of 3
    boston trials bitwise unsharded (every product past Phi per trial);
-   each rank's digests equal; 15c experiments/synthetic_scaling.py at 1
-   and 2 ranks (two ranks share the card: steps/s, no scaling result).
+   each rank's digests equal; K1f and K1b against the plain map at each
+   rank's shapes of the DP loss, the TP strip and its trial stack of
+   fit_fast_batch, at phase 6's bounds; 15c
+   experiments/synthetic_scaling.py at 1 and 2 ranks (two ranks share the
+   card: steps/s, no scaling result), each rank's six counts held as
+   every other path's.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
@@ -761,18 +765,21 @@ class PlainFeatures:
 
 @contextlib.contextmanager
 def plain_feature_map():
-    """Run the model's objective, dense and streaming, on the plain feature
-    map: every loss, gradient and prediction inside skips K1f and K1b."""
+    """Run the model's objective, dense, streaming and tensor-parallel, on
+    the plain feature map: every loss, gradient and prediction inside skips
+    K1f and K1b."""
     from scfgp_tpu_torch.models import objective
     from scfgp_tpu_torch.ops import streaming
-    kernel, blocks = objective.fourier_features, streaming.FourierFeatures
+    from scfgp_tpu_torch.parallel import tp
+    kernel, blocks, strips = (objective.fourier_features,
+                              streaming.FourierFeatures, tp.FourierFeatures)
     objective.fourier_features = plain_fourier_features
-    streaming.FourierFeatures = PlainFeatures
+    streaming.FourierFeatures = tp.FourierFeatures = PlainFeatures
     try:
         yield
     finally:
         objective.fourier_features = kernel
-        streaming.FourierFeatures = blocks
+        streaming.FourierFeatures, tp.FourierFeatures = blocks, strips
 
 
 def trial_of(tree, b):
@@ -798,14 +805,14 @@ def stack_trials(trees):
 
 
 @contextlib.contextmanager
-def per_trial_products():
+def per_trial_products(plain=False):
     """Run ``fit_fast_batch``'s objective with only its feature map batched:
     each trial's frequencies are derived alone and stacked, one K1f and one
     K1b launch serve all trials, and every product past Phi (Gram,
     Cholesky, moments, penalty, predictions) runs per trial on 2-D tensors.
     The loop, its masks, generators and optimizer state, and the
     validation metric stay batched.  Without a trial axis the objective is
-    unchanged."""
+    unchanged.  ``plain``: the batched feature map by its plain version."""
     from scfgp_tpu_torch.models import model, objective
     from scfgp_tpu_torch.models.params import (derive_frequencies,
                                                feature_scale)
@@ -816,7 +823,7 @@ def per_trial_products():
         if basis_fn is not None:
             raise NotImplementedError("per_trial_products: no extra basis")
         fr = [derive_frequencies(q) for q in trials]
-        return FourierFeatures.apply(
+        return (PlainFeatures if plain else FourierFeatures).apply(
             X, torch.stack([f.Fcat for f in fr]),
             torch.stack([f.pcat for f in fr]),
             torch.stack([feature_scale(q) for q in trials]))
@@ -868,7 +875,16 @@ class Launches:
             fn.launches = 0
 
     def read(self, path, need=("phi_fwd", "phi_bwd"), none=CHOL_KERNELS):
-        counts = {name: fn.launches for name, fn in self.kernels.items()}
+        return self.record(path, {name: fn.launches
+                                  for name, fn in self.kernels.items()},
+                           need, none)
+
+    def record(self, path, counts, need=("phi_fwd", "phi_bwd"),
+               none=CHOL_KERNELS):
+        """``read`` of counts taken elsewhere (another process's), every
+        kernel's."""
+        check(set(counts) == set(self.kernels),
+              f"{path}: counts of {sorted(counts)}, not of every kernel")
         for name in need:
             check(counts[name] > 0, f"{name} was not launched in {path}")
         for name in none:
@@ -2204,6 +2220,16 @@ def digest(tensors):
     return h.hexdigest()[:16]
 
 
+def vs_plain(got, ref):
+    """A kernel path's ``((cost, aux), grads)`` against the plain path's on
+    the same inputs: the largest relative error of the cost (of any trial)
+    and ``grad_errors``."""
+    (c, _), g = got
+    (c0, _), g0 = ref
+    return dict(cost_rel_err=float(((c - c0).abs() / c0.abs()).max()),
+                grad_rel_err=grad_errors(g, g0))
+
+
 def parallel_config(device="cuda"):
     """15b's shapes and budgets, as ``parallel_rank_checks`` takes them."""
     return dict(
@@ -2220,11 +2246,15 @@ def parallel_config(device="cuda"):
 def parallel_rank_checks(cfg):
     """15b, one rank: each check against the single-rank port on the same
     inputs (rank 0 computes the references), with its own launch counts
-    (a path's counts set to 0 just before it and read just after)."""
+    (a path's counts set to 0 just before it and read just after).  The DP
+    loss, the TP strip and this rank's trial stack of fit_fast_batch are
+    also taken on the plain feature map (``vs_plain``): K1f and K1b at the
+    shapes this rank gives them."""
     import torch.distributed as dist
     from scfgp_tpu_torch import SCFGP
     from scfgp_tpu_torch.data.datasets import load_boston, load_kin8nm
     from scfgp_tpu_torch.experiments.boston_housing import OPT
+    from scfgp_tpu_torch.models import model as model_mod
     from scfgp_tpu_torch.models.model import fit_fast_batch
     from scfgp_tpu_torch.models.objective import loss_and_grad
     from scfgp_tpu_torch.models.params import SCFGPParams, init_params
@@ -2277,6 +2307,10 @@ def parallel_rank_checks(cfg):
     counts = launches.read("15b dp", need=need)
     out["dp"] = dict(rows=int(Xs.shape[0]), launches=counts,
                      digest=digest(got[1]))
+    with plain_feature_map():
+        plain = loss_and_grad(m.params, Xs, ys, ws, axis_name=data)
+    out["dp"]["vs_plain"] = dict(vs_plain(got, plain), n=int(Xs.shape[0]),
+                                 d=m.D, k=m.S + m.M)
     if rank == 0:
         out["dp"].update(compare(got, ref))
     times["dp"] = time.perf_counter() - t
@@ -2326,6 +2360,11 @@ def parallel_rank_checks(cfg):
     out["tp"] = dict(mesh=list(cfg["tp"]["mesh"]), rows=int(X2.shape[0]),
                      launches=launches.read("15b tp", need=need),
                      digest=digest(got[1]))
+    with plain_feature_map():
+        plain = tp_loss_and_grad(mesh2, p0, X2, y2, w2)
+    out["tp"]["vs_plain"] = dict(
+        vs_plain(got, plain), n=int(X2.shape[0]), d=st["D"],
+        k=(st["S"] + st["M"]) // mesh2.shape["feature"])
     if rank == 0:
         out["tp"].update(compare(got, ref))
     del X_tp, y_tp, X2, y2, w2
@@ -2369,6 +2408,21 @@ def parallel_rank_checks(cfg):
     counts = launches.read("15b fit_fast_batch(mesh)", need=need)
     out["batch"] = dict(B=bc["B"], launches=counts,
                         digests=[digest(b.params) for b in sharded])
+    # this rank's trial stack (padded), its first step's loss and gradient
+    trials = model_mod._trial_slice(mesh, bc["B"])
+    ms = [SCFGP(**bc["model"], seed=b, device=dev) for b in trials]
+    for mb, b in zip(ms, trials):
+        mb.set_data(*splits[b][:2])
+    q = SCFGPParams(*[torch.stack(t) for t in zip(*[mb.params for mb in ms])])
+    Xb, yb = (torch.stack([t.clone() for t in ts])
+              for ts in ([mb.X for mb in ms], [mb.y for mb in ms]))
+    with per_trial_products():
+        got = model_mod.loss_and_grad(q, Xb, yb)
+    with per_trial_products(plain=True):
+        plain = model_mod.loss_and_grad(q, Xb, yb)
+    out["batch"]["vs_plain"] = dict(
+        vs_plain(got, plain), trials=trials, n=int(Xb.shape[1]),
+        d=ms[0].D, k=ms[0].S + ms[0].M)
     if rank == 0:
         plain = batch()
         out["batch"].update(
@@ -2406,6 +2460,10 @@ def parallel_ranks_phase(launches, plain_fit):
                          for k in r0["stream"])
     same["batch"] = len({tuple(r["batch"]["digests"]) for r in res}) == 1
     nmse, nmse_1 = r0["fit_fast"]["NMSE"], plain_fit.evals["NMSE"][1][-1]
+    plain = {f"{k} (rank {r['rank']})": r[k]["vs_plain"] for r in res
+             for k in ("dp", "tp", "batch")}
+    say("parallel_ranks_vs_plain", tol=dict(cost=COST_TOL, grad=GRAD_TOL),
+        paths=plain)
     say("parallel_ranks", ranks=PARALLEL_RANKS, backend=r0["backend"],
         staging="gloo copies CUDA tensors through host memory inside its "
                 "collectives; the port stages nothing itself",
@@ -2423,6 +2481,10 @@ def parallel_ranks_phase(launches, plain_fit):
         check(row["cost_rel_err"] <= STREAM_COST_TOL
               and max(row["grad_rel_err"].values()) <= STREAM_GRAD_TOL,
               f"15b: streaming {route} differs from the single rank: {row}")
+    for what, row in plain.items():
+        check(row["cost_rel_err"] <= COST_TOL
+              and max(row["grad_rel_err"].values()) <= GRAD_TOL,
+              f"15b: {what}: kernel and plain differ: {row}")
     check(abs(nmse - nmse_1) <= FIT_NMSE_TOL * nmse_1,
           f"15b: fit_fast(mesh) NMSE {nmse} vs one rank's {nmse_1}")
     check(all(r0["batch"]["bitwise"]),
@@ -2435,15 +2497,13 @@ def parallel_scaling_phase(launches, workdir):
     card; steps/s only (two ranks share the card: no scaling result)."""
     from scfgp_tpu_torch.experiments import synthetic_scaling
     rep = synthetic_scaling.main(SCALING_ARGS + ["--out", workdir])
-    for pt in rep["points"]:
-        launches.by_path[f"15c scaling, {pt['ranks']} rank(s) (rank 0)"] = \
-            dict(pt["launches"], gram_fwd=0, gram_bwd=0, cholesky=0,
-                 cholesky_inverse=0)
     say("parallel_scaling", points=rep["points"])
-    check(all(pt["costs_equal"] and pt["launches"]["phi_fwd"] > 0
-              and pt["launches"]["phi_bwd"] > 0 for pt in rep["points"]),
-          f"15c: a point's ranks disagree or launched no kernel: "
-          f"{rep['points']}")
+    for pt in rep["points"]:
+        for rank, counts in enumerate(pt["launches"]):
+            launches.record(f"15c scaling, {pt['ranks']} rank(s) "
+                            f"(rank {rank})", counts)
+    check(all(pt["costs_equal"] for pt in rep["points"]),
+          f"15c: a point's ranks disagree: {rep['points']}")
 
 
 def parallel_phase(launches, workdir):

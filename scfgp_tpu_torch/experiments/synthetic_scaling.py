@@ -17,7 +17,8 @@ says so (``shared_card``).
         [--rows-per-device 8192] [--dim 64] [--sparsity 50]
         [--nfeats 200] [--steps 30] [--cpu] [--out DIR]
 
-One JSON line a point; writes ``<out>/weak_scaling.json`` (default
+One JSON line a point, with each rank's kernel launches in its timed
+steps; writes ``<out>/weak_scaling.json`` (default
 ``scfgp_tpu_torch/experiments/results/scaling/``).  On the card unless
 ``--cpu``; the default ranks are 1, 2, 4, ... up to the cards there are
 (on the CPU, up to 8).
@@ -36,9 +37,11 @@ from .boston_housing import RESULTS
 
 def scaling_rank(cfg: dict) -> dict:
     """One rank's point: ``cfg["steps"]`` DP train steps, timed after one
-    warm-up step, with K1f's and K1b's launches in the timed steps."""
+    warm-up step, with every kernel's launches in the timed steps."""
     import torch.distributed as dist
     from ..models.params import init_params
+    from ..ops.cholesky import cholesky_cuda, cholesky_inverse_cuda
+    from ..ops.gram import sufficient_stats_bwd_cuda, sufficient_stats_cuda
     from ..ops.phi import fourier_features_bwd_cuda, fourier_features_cuda
     from ..opt.optimizers import make_optimizer
     from ..parallel import launch, make_dp_train_step, make_mesh, shard_rows
@@ -64,7 +67,14 @@ def scaling_rank(cfg: dict) -> dict:
             torch.cuda.synchronize()
     sync()
     dist.barrier()
-    fourier_features_cuda.launches = fourier_features_bwd_cuda.launches = 0
+    kernels = {"phi_fwd": fourier_features_cuda,
+               "phi_bwd": fourier_features_bwd_cuda,
+               "gram_fwd": sufficient_stats_cuda,
+               "gram_bwd": sufficient_stats_bwd_cuda,
+               "cholesky": cholesky_cuda,
+               "cholesky_inverse": cholesky_inverse_cuda}
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     for _ in range(cfg["steps"]):
         params, state, cost, _ = step(params, state, Xs, ys, ws)
@@ -73,8 +83,7 @@ def scaling_rank(cfg: dict) -> dict:
     return {"rank": dist.get_rank(), "steps_per_s": cfg["steps"] / dt,
             "seconds": dt, "cost": float(cost),
             "backend": launch.backend_for(cfg["device"], W),
-            "launches": {"phi_fwd": fourier_features_cuda.launches,
-                         "phi_bwd": fourier_features_bwd_cuda.launches}}
+            "launches": {name: fn.launches for name, fn in kernels.items()}}
 
 
 def main(argv=None) -> dict:
@@ -117,7 +126,7 @@ def main(argv=None) -> dict:
                  "steps_per_s": rate, "weak_scaling_efficiency": rate / base,
                  "backend": res[0]["backend"],
                  "shared_card": device == "cuda" and W > cards,
-                 "launches": res[0]["launches"],
+                 "launches": [r["launches"] for r in res],
                  "costs_equal": len({r["cost"] for r in res}) == 1}
         if point["shared_card"]:
             point["note"] = (f"{W} ranks share {cards} card(s): the steps/s "

@@ -20,8 +20,8 @@ has_aux=True)``.  The reference quirks stay: the feature scale uses M, not S+M
 (``SCFGP.py:125-126``).  The JAX package's TPU matrix-unit levers
 (``mm_dtype``, ``mm_precision``) are not part of this module.
 
-Data parallelism: with ``axis_name`` (a process group, or a dimension of
-the mesh of ``parallel/mesh.py``) ``loss_fn`` takes this rank's rows and
+Data parallelism: with ``axis_name`` (a process group, such as
+``mesh.group("data")`` of a mesh of ``parallel/mesh.py``) ``loss_fn`` takes this rank's rows and
 all-reduces the sufficient statistics and the expected-NLL row sum
 (``scfgp_tpu/models/objective.py:361-372``) through the differentiable
 collectives of ``ops/collectives.py``; ``value_and_grad`` then gives the
@@ -274,8 +274,8 @@ def loss_fn(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
             residual_fit: bool = False, axis_name=None):
     """SCFGP objective ``cost = (nlml + penalty) / N`` (``SCFGP.py:92-128``
     term by term).  Returns ``(cost, LossAux)``.  ``residual_fit``: see
-    ``loss_from_phi``.  With ``axis_name`` (a process group or a mesh
-    dimension's name) ``X``, ``y`` and ``w`` are this rank's rows, and the
+    ``loss_from_phi``.  With ``axis_name`` (a process group, such as
+    ``mesh.group("data")``) ``X``, ``y`` and ``w`` are this rank's rows, and the
     statistics and the expected-NLL sum are all-reduced over the group, so
     the cost is the full batch's on every rank."""
     return loss_from_phi(p, feature_block(p, X, basis_fn), y, w,

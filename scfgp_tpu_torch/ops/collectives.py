@@ -22,9 +22,10 @@ value_and_grad`` divides the cost by the number of replicas before the
 backward and all-reduces the parameter gradient after it: the exact
 global gradient, on every rank.
 
-``axis_name`` is a ``torch.distributed`` group or the name of a dimension
-of the mesh last built in this process (``parallel/mesh.py`` registers
-them), as a JAX axis name refers to the enclosing ``shard_map``'s mesh.
+``axis_name`` is a ``torch.distributed`` group.  A JAX axis name refers to
+the mesh of the enclosing ``shard_map``; the port has no such scope, so a
+caller names a dimension of an explicit mesh, ``mesh.group("data")``
+(``parallel/mesh.py``), and passes the group.  A bare name is refused.
 """
 
 from __future__ import annotations
@@ -32,26 +33,14 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-# Dimension name -> this rank's group along it, of the last mesh built.
-_AXES: dict = {}
-
-
-def register_axes(groups: dict) -> None:
-    """Make ``groups`` (name -> group) what axis names refer to."""
-    _AXES.clear()
-    _AXES.update(groups)
-
 
 def resolve_group(axis_name):
-    """The group ``axis_name`` names: itself if it is a group, else the
-    group of that dimension of the last mesh built in this process."""
+    """The group ``axis_name`` is; a string is refused, since a name means
+    nothing without its mesh (module docstring)."""
     if isinstance(axis_name, str):
-        if axis_name not in _AXES:
-            raise ValueError(
-                f"no mesh dimension named {axis_name!r} in this process: "
-                "build one with scfgp_tpu_torch.parallel.make_mesh or "
-                f"make_mesh2d (known: {sorted(_AXES)})")
-        return _AXES[axis_name]
+        raise TypeError(
+            f"axis_name={axis_name!r}: pass the group of an explicit mesh, "
+            f"mesh.group({axis_name!r}) (scfgp_tpu_torch.parallel)")
     return axis_name
 
 

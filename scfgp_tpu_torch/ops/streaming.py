@@ -27,8 +27,8 @@ gradient launches them as often as a 1-trial one.  The ``"kernel"`` route
 takes no trial axis: K2f and K2b have none (ROADMAP.md Queue 2).
 
 The JAX package's TPU levers (``feature_impl``, ``mm_precision``) are
-not carried, as in the port's ``loss_fn``.  ``axis_name`` is: each rank
-streams its own rows, and pass 1's statistics and pass 2's row sums are
+not carried, as in the port's ``loss_fn``.  ``axis_name`` (a process
+group) is: each rank streams its own rows, and pass 1's statistics and pass 2's row sums are
 all-reduced over the group (``scfgp_tpu/ops/streaming.py:109-135``), on
 either route.
 """
@@ -166,8 +166,8 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     takes the data-fit term as ``(Σ w (μ_f - y)² + (σ² + ε)‖α‖²) / σ²``,
     its rows summed in pass 2 (``objective.py::loss_from_phi``).  Params
     with a trial axis B give cost (B,) (module docstring).  With
-    ``axis_name`` (a process group or a mesh dimension's name) ``X``, ``y``
-    and ``w`` are this rank's rows and every row sum is all-reduced over
+    ``axis_name`` (a process group, such as ``mesh.group("data")``) ``X``,
+    ``y`` and ``w`` are this rank's rows and every row sum is all-reduced over
     the group, as in ``loss_fn``."""
     st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn)
     sig2_n = torch.exp(2.0 * p.a)

@@ -4,13 +4,13 @@ Port of ``scfgp_tpu/parallel/mesh.py``.  JAX runs one process over a
 ``Mesh`` of devices; PyTorch runs one process a rank
 (``parallel/launch.py``).  The port's ``Mesh`` lays the ranks of the
 default process group on named dimensions, ``("data",)`` or ``("data",
-"feature")``, holds this rank's ``torch.distributed`` group along each
-(made here, by ``new_group``, in the same order on every rank) and the
-``torch.distributed.device_mesh.DeviceMesh`` over those groups
-(``device_mesh``, made by ``DeviceMesh.from_group``, which creates no
-group of its own: on a host with a card, DeviceMesh's own group creation
-picks NCCL, which two ranks sharing one card cannot use).  ``shape`` maps
-each dimension's name to its size, as a JAX mesh's does.
+"feature")``, and is its own table of this rank's ``torch.distributed``
+group along each (made here, by ``new_group``, in the same order on every
+rank; no ``DeviceMesh``, whose own group creation picks NCCL on a host
+with a card, which two ranks sharing one card cannot use).  ``shape`` maps
+each dimension's name to its size, as a JAX mesh's does, and
+``group(name)`` is the group that a collective of ``ops/collectives.py``
+takes where JAX writes the axis name.
 
 Rows of (X, y) are split over ``data`` in contiguous blocks, padded with
 zero-weight rows to a multiple of the rank count, so that the sharded
@@ -26,8 +26,6 @@ import math
 import numpy as np
 import torch
 import torch.distributed as dist
-
-from ..ops.collectives import register_axes
 
 DATA_AXIS = "data"
 FEATURE_AXIS = "feature"
@@ -62,13 +60,6 @@ class Mesh:
                 if rank in ranks:
                     self._groups[name] = group
         self.world = dist.group.WORLD
-        from torch.distributed.device_mesh import DeviceMesh
-        groups = [self._groups[n] for n in self.axis_names]
-        self.device_mesh = DeviceMesh.from_group(
-            groups[0] if len(groups) == 1 else groups,
-            "cuda" if torch.cuda.is_available() else "cpu",
-            mesh=grid, mesh_dim_names=self.axis_names)
-        register_axes(self._groups)
 
     def group(self, axis_name: str):
         """This rank's group along the dimension ``axis_name``."""

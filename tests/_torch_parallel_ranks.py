@@ -1,8 +1,8 @@
 """Per-rank checks of the port's parallel layer.
 
-``tests/test_torch_parallel.py`` and ``tests/test_torch_tp.py`` run these
-on W gloo ranks through ``scfgp_tpu_torch.parallel.launch`` (one spawn a
-world size a test module) and hold what they return against the JAX
+``tests/test_torch_parallel.py`` runs these on W gloo ranks through
+``scfgp_tpu_torch.parallel.launch`` (one spawn a world size; the world of
+8 runs the data-parallel and the tensor-parallel checks) and holds what they return against the JAX
 package and the single-device port.  This module imports only
 torch and the port, never ``tests/conftest.py`` (which imports JAX), so
 that a rank starts from a fresh import of the port alone.
@@ -48,8 +48,9 @@ def _shard(mesh, X, y):
 def dp_rank(cfg: dict) -> dict:
     """Loss, gradient and an adam trajectory by both mode names, the
     streaming loss and gradient on both routes, ``fit_fast(mesh=)`` and,
-    where asked, ``fit_fast_batch(mesh=)`` and one rank's part of the dry
-    run; each beside the single-device port where it is cheap."""
+    where asked, ``fit_fast_batch(mesh=)``, one rank's part of the dry
+    run and the tensor-parallel checks (``tp_rank``); each beside the
+    single-device port where it is cheap."""
     mesh = make_mesh()
     W = dist.get_world_size()
     out = {"rank": dist.get_rank(), "mesh_shape": mesh.shape,
@@ -61,8 +62,18 @@ def dp_rank(cfg: dict) -> dict:
     for mode in MODES:
         cost, post = make_dp_eval(mesh, mode)(p, Xs, ys, ws)
         out[f"loss_{mode}"] = (float(cost), post.alpha.numpy())
-    cost, aux = loss_fn(p, Xs, ys, ws, axis_name="data")  # by name
-    out["loss_by_name"] = float(cost)
+    data = mesh.group("data")
+    cost, aux = loss_fn(p, Xs, ys, ws, axis_name=data)
+    out["loss_fn_group"] = float(cost)
+    try:
+        loss_fn(p, Xs, ys, ws, axis_name="data")
+    except TypeError as e:
+        out["name_refused"] = str(e)
+    # A later mesh whose "data" dimension is one rank leaves this mesh's
+    # group as it was.
+    make_mesh2d(1, W)
+    out["loss_after_2d_mesh"] = float(
+        loss_fn(p, Xs, ys, ws, axis_name=data)[0])
     if W == 1:
         c0, a0 = loss_fn(p, X, y)
         out["world1_bitwise"] = (torch.equal(cost, c0) and all(
@@ -70,7 +81,7 @@ def dp_rank(cfg: dict) -> dict:
 
     p, X, y = _data(cfg["grad"])
     Xs, ys, ws = _shard(mesh, X, y)
-    (_, _), g = loss_and_grad(p, Xs, ys, ws, axis_name=mesh.group("data"))
+    (_, _), g = loss_and_grad(p, Xs, ys, ws, axis_name=data)
     out["grad"] = _np(g)
 
     p, X, y = _data(cfg["trajectory"])
@@ -88,7 +99,7 @@ def dp_rank(cfg: dict) -> dict:
     for route in ("gemm", "kernel"):
         (c, _), g = loss_and_grad_streaming(
             p, Xs, ys, ws, block_size=cfg["block"], stats_impl=route,
-            axis_name="data")
+            axis_name=data)
         out[f"stream_{route}"] = (float(c), _np(g))
 
     Xt, yt, Xv, yv = cfg["fit_data"]
@@ -111,6 +122,8 @@ def dp_rank(cfg: dict) -> dict:
     if cfg.get("dryrun"):
         from scfgp_tpu_torch.graft_entry import dryrun_rank
         out["dryrun"] = dryrun_rank(W, DEVICE)
+    if "tp" in cfg:
+        out["tp"] = tp_rank(cfg["tp"])
     return out
 
 

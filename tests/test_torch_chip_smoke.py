@@ -206,3 +206,53 @@ def test_phase_15b_rank_checks_run_on_two_cpu_ranks():
         assert max(row["grad_rel_err"].values()) <= chip_smoke.STREAM_GRAD_TOL
     assert r0["batch"]["digests"] == r1["batch"]["digests"]
     assert r0["batch"]["bitwise"] == [True] * 3
+    for r in (r0, r1):  # the kernel-vs-plain rows, every rank's shapes
+        for key in ("dp", "tp", "batch"):
+            row = r[key]["vs_plain"]
+            assert row["cost_rel_err"] <= chip_smoke.COST_TOL, key
+            assert max(row["grad_rel_err"].values()) <= chip_smoke.GRAD_TOL
+        assert r["dp"]["vs_plain"]["n"] == 150
+        assert (r["tp"]["vs_plain"]["n"], r["tp"]["vs_plain"]["k"]) == (512, 8)
+    assert [r["batch"]["vs_plain"]["trials"] for r in (r0, r1)] == [[0, 1],
+                                                                    [2, 2]]
+
+
+KERNELS = ("phi_fwd", "phi_bwd", "gram_fwd", "gram_bwd", "cholesky",
+           "cholesky_inverse")
+
+
+class _Wrapper:
+    launches = 0
+
+
+def test_phase_15c_holds_every_kernels_count(monkeypatch, tmp_path):
+    """The scaling driver's rank returns every kernel's launches, and 15c
+    holds each rank's counts as every other path's: K1f and K1b launched,
+    K3 and K4 not, and every kernel counted."""
+    from scfgp_tpu_torch.experiments import synthetic_scaling
+    from scfgp_tpu_torch.parallel import launch
+    with launch.local_world("cpu"):
+        res = synthetic_scaling.scaling_rank(dict(
+            device="cpu", rows_per_device=32, dim=3, sparsity=2, nfeats=4,
+            steps=2))
+    assert res["launches"] == dict.fromkeys(KERNELS, 0)  # no card
+
+    def run(**counts):
+        launches = chip_smoke.Launches(**{k: _Wrapper() for k in KERNELS})
+        row = dict(dict.fromkeys(KERNELS, 0), phi_fwd=6, phi_bwd=2)
+        row.update(counts)
+        monkeypatch.setattr(synthetic_scaling, "main", lambda argv: {
+            "points": [{"ranks": 2, "costs_equal": True,
+                        "launches": [row, dict(row)]}]})
+        chip_smoke.parallel_scaling_phase(launches, str(tmp_path))
+        return launches.by_path
+
+    assert run() == {f"15c scaling, 2 rank(s) (rank {r})":
+                     dict(dict.fromkeys(KERNELS, 0), phi_fwd=6, phi_bwd=2)
+                     for r in (0, 1)}
+    for bad in (dict(phi_bwd=0), dict(cholesky=1), dict(cholesky_inverse=3)):
+        with pytest.raises(AssertionError):
+            run(**bad)
+    with pytest.raises(AssertionError, match="every kernel"):
+        launches = chip_smoke.Launches(**{k: _Wrapper() for k in KERNELS})
+        launches.record("a path", dict(phi_fwd=1, phi_bwd=1))

@@ -1,11 +1,14 @@
 """The port's data parallelism against the JAX package and against the
 single-device port: ``parallel/mesh.py``, ``dp.py``, ``multihost.py``,
 ``launch.py``, ``loss_fn``/``loss_fn_streaming`` with ``axis_name``,
-``fit_fast(mesh=)`` and ``fit_fast_batch(mesh=)``.
+``fit_fast(mesh=)`` and ``fit_fast_batch(mesh=)``; and its feature-axis
+tensor parallelism (``parallel/tp.py``) on 2-D (data, feature) meshes of
+8 ranks.
 
 The port runs W gloo ranks on the CPU (``parallel/launch.py``), once a
-world size for the module (``tests/_torch_parallel_ranks.py``); the JAX
-side runs on conftest's 8 virtual CPU devices, a mesh of the first W.
+world size for the module (``tests/_torch_parallel_ranks.py``; the world
+of 8 also runs the tensor-parallel checks); the JAX side runs on
+conftest's 8 virtual CPU devices, a mesh of the first W.
 Both get the same θ and data as NumPy arrays, in float64.  Tolerances:
   * loss: rtol 1e-12 (the JAX sharded-loss test's), alpha rtol 1e-9;
   * gradient: rtol 1e-9, atol 1e-12 (phase leaves are pure gauge, ~0);
@@ -13,10 +16,14 @@ Both get the same θ and data as NumPy arrays, in float64.  Tolerances:
   * streaming: rtol 1e-10 against the single-device stream;
   * fit_fast(mesh=): tests/test_parallel.py:99-121's, params rtol 2e-5,
     atol 1e-7, NMSE rtol 1e-4; fit_fast_batch(mesh=): the metrics at rtol
-    1e-5 (tests/test_batch_fit.py:137-151).
+    1e-5 (tests/test_batch_fit.py:137-151);
+  * TP (tests/test_tp.py's): loss rtol 1e-10, alpha and L rtol 1e-8 (L
+    atol 1e-10), gradient rtol 1e-7 atol 1e-11, 15 adam steps rtol 1e-6
+    atol 1e-9.
 A world of one rank is bitwise the plain ``loss_fn``.
 """
 
+import functools
 import multiprocessing as mp
 import socket
 from concurrent.futures import ThreadPoolExecutor
@@ -34,6 +41,8 @@ from scfgp_tpu.parallel import mesh as jmesh
 from scfgp_tpu.parallel.dp import make_dp_eval as jax_dp_eval
 from scfgp_tpu.opt.optimizers import make_optimizer as jax_make_optimizer
 from scfgp_tpu.opt.optimizers import tree_add as jax_tree_add
+from scfgp_tpu.parallel.tp import shard_rows_2d as jax_shard_rows_2d
+from scfgp_tpu.parallel.tp import tp_loss as jax_tp_loss
 from scfgp_tpu_torch import SCFGP
 from scfgp_tpu_torch.data.datasets import synthetic_gp_rff
 from scfgp_tpu_torch.models.model import fit_fast_batch
@@ -92,6 +101,91 @@ def _batch_splits(B, n=120, d=3):
 
 CASES = {"loss": _problem(0), "grad": _problem(1), "trajectory": _problem(2)}
 
+TP_N, TP_D, TP_S, TP_M = 97, 5, 4, 12  # S+M = 16: feature sizes 2 and 4
+TP_MESHES = [(4, 2), (2, 4)]
+TP_STEPS = 15
+
+
+def _tp_problem(seed, s=TP_S, m=TP_M):
+    rng = np.random.RandomState(seed)
+    X, y = rng.randn(TP_N, TP_D), rng.randn(TP_N)
+    theta = [np.asarray(a) for a in
+             jax_init_params(jax.random.PRNGKey(seed), TP_D, s, m,
+                             jnp.float64)]
+    return theta, X, y
+
+
+TP_CASES = {"loss": _tp_problem(0), "grad": _tp_problem(1),
+            "trajectory": _tp_problem(2),
+            "indivisible": _tp_problem(0, s=3, m=10)}  # S+M = 13
+
+# The JAX references, each computed once (jitted), and all of them while
+# the ranks run (``worlds``).
+
+
+def _jax_case(case):
+    theta, X, y = case
+    return _jax_params(theta), jnp.asarray(X), jnp.asarray(y)
+
+
+@functools.cache
+def _jax_loss(cases="dp"):
+    p, X, y = _jax_case((CASES if cases == "dp" else TP_CASES)["loss"])
+    return jax.jit(jax_loss_fn)(p, X, y)
+
+
+@functools.cache
+def _jax_dp_loss(W, mode):
+    theta, X, y = CASES["loss"]
+    mesh = jmesh.make_mesh(jax.devices()[:W])
+    return jax_dp_eval(mesh, mode)(_jax_params(theta),
+                                   *jmesh.shard_rows(mesh, X, y))
+
+
+@functools.cache
+def _jax_grad(cases="dp"):
+    p, X, y = _jax_case((CASES if cases == "dp" else TP_CASES)["grad"])
+    return jax.tree.leaves(jax.jit(jax.grad(
+        lambda q: jax_loss_fn(q, X, y)[0]))(p))
+
+
+@functools.cache
+def _jax_trajectory(cases="dp"):
+    """STEPS (TP_STEPS) adam steps of JAX's loss from the case
+    "trajectory": the final params."""
+    p, X, y = _jax_case((CASES if cases == "dp" else TP_CASES)["trajectory"])
+    tx = jax_make_optimizer("adam", {"learning_rate": 0.01})
+    st = tx.init(p)
+
+    @jax.jit
+    def step(p, s):
+        g = jax.grad(lambda q: jax_loss_fn(q, X, y)[0])(p)
+        delta, s = tx.update(g, s, p)
+        return jax_tree_add(p, delta), s
+    for _ in range(STEPS if cases == "dp" else TP_STEPS):
+        p, st = step(p, st)
+    return jax.tree.leaves(p)
+
+
+@functools.cache
+def _jax_tp_loss(shape):
+    p, X, y = _jax_case(TP_CASES["loss"])
+    mesh = jmesh.make_mesh2d(*shape)
+    return jax.jit(jax_tp_loss(mesh))(
+        p, *jax_shard_rows_2d(mesh, np.asarray(X), np.asarray(y)))
+
+
+def _jax_references():
+    for cases in ("dp", "tp"):
+        _jax_loss(cases)
+        _jax_grad(cases)
+        _jax_trajectory(cases)
+    for W in WORLDS:
+        for mode in MODES:
+            _jax_dp_loss(W, mode)
+    for shape in TP_MESHES:
+        _jax_tp_loss(shape)
+
 
 @pytest.fixture(scope="module")
 def worlds():
@@ -101,7 +195,8 @@ def worlds():
         cfg = dict(CASES, steps=STEPS, block=BLOCK, fit_data=_fit_data(),
                    dryrun=W == 2)
         if W == 8:
-            cfg.update(batch=_batch_splits(5), batch_opt=BATCH_OPT)
+            cfg.update(batch=_batch_splits(5), batch_opt=BATCH_OPT,
+                       tp=dict(TP_CASES, meshes=TP_MESHES, steps=TP_STEPS))
         return launch.run(ranks.dp_rank, W, cfg, device="cpu", threads=1,
                           timeout=300)
 
@@ -114,7 +209,9 @@ def worlds():
     collect_joins = _start_joins()
     with ThreadPoolExecutor(len(WORLDS) + 1) as pool:
         failed = pool.submit(fail)
-        out = dict(zip(WORLDS, pool.map(run, WORLDS)))
+        runs = pool.map(run, WORLDS)
+        _jax_references()
+        out = dict(zip(WORLDS, runs))
         out["failed"] = failed.result()
     out["joins"] = collect_joins()
     return out
@@ -160,22 +257,27 @@ def test_mesh_shape_by_name_and_coordinator(worlds, W):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("W", WORLDS)
 def test_dp_loss_equals_single_device_and_jax(worlds, W, mode):
-    theta, X, y = CASES["loss"]
-    cost_ref, aux_ref = jax_loss_fn(_jax_params(theta), jnp.asarray(X),
-                                    jnp.asarray(y))
-    mesh = jmesh.make_mesh(jax.devices()[:W])
-    cost_j, post_j = jax_dp_eval(mesh, mode)(
-        _jax_params(theta), *jmesh.shard_rows(mesh, X, y))
+    cost_ref, _ = _jax_loss()
+    cost_j, post_j = _jax_dp_loss(W, mode)
     (c0, a0), _ = loss_and_grad(*_port(CASES["loss"]))
     for res in worlds[W]:
         cost, alpha = res[f"loss_{mode}"]
         np.testing.assert_allclose(cost, float(c0), rtol=1e-12)
         np.testing.assert_allclose(cost, float(cost_j), rtol=1e-12)
         np.testing.assert_allclose(cost, float(cost_ref), rtol=1e-12)
-        np.testing.assert_allclose(res["loss_by_name"], cost, rtol=1e-12)
+        np.testing.assert_allclose(res["loss_fn_group"], cost, rtol=1e-12)
         np.testing.assert_allclose(alpha, a0.post.alpha.numpy(), rtol=1e-9)
         np.testing.assert_allclose(alpha, np.asarray(post_j.alpha),
                                    rtol=1e-9)
+
+
+@pytest.mark.parametrize("W", WORLDS)
+def test_axis_name_is_an_explicit_mesh_group(worlds, W):
+    """A bare name is refused, and a mesh's group keeps meaning that mesh's
+    ranks after a later mesh whose ``data`` dimension is one rank."""
+    for res in worlds[W]:
+        assert "mesh.group('data')" in res["name_refused"]
+        assert res["loss_after_2d_mesh"] == res["loss_fn_group"]
 
 
 def test_dp_world_of_one_is_bitwise_the_plain_loss(worlds):
@@ -184,33 +286,16 @@ def test_dp_world_of_one_is_bitwise_the_plain_loss(worlds):
 
 @pytest.mark.parametrize("W", WORLDS)
 def test_dp_gradient_equals_single_device_and_jax(worlds, W):
-    theta, X, y = CASES["grad"]
-    g_jax = jax.grad(lambda p: jax_loss_fn(p, jnp.asarray(X),
-                                           jnp.asarray(y))[0])(
-        _jax_params(theta))
     _, g0 = loss_and_grad(*_port(CASES["grad"]))
     for res in worlds[W]:
         _close(res["grad"], [t.numpy() for t in g0], 1e-9, 1e-12)
-        _close(res["grad"], jax.tree.leaves(g_jax), 1e-9, 1e-12)
+        _close(res["grad"], _jax_grad(), 1e-9, 1e-12)
 
 
 @pytest.fixture(scope="module")
 def trajectories():
     """STEPS adam steps from CASES["trajectory"]: JAX's and the
     single-device port's final params."""
-    theta, X, y = CASES["trajectory"]
-    tx = jax_make_optimizer("adam", {"learning_rate": 0.01})
-    p = _jax_params(theta)
-    st = tx.init(p)
-    Xj, yj = jnp.asarray(X), jnp.asarray(y)
-
-    @jax.jit
-    def step(p, s):
-        g = jax.grad(lambda q: jax_loss_fn(q, Xj, yj)[0])(p)
-        delta, s = tx.update(g, s, p)
-        return jax_tree_add(p, delta), s
-    for _ in range(STEPS):
-        p, st = step(p, st)
     q, X_t, y_t = _port(CASES["trajectory"])
     ttx = make_optimizer("adam", {"learning_rate": 0.01})
     ts = ttx.init(q)
@@ -218,7 +303,7 @@ def trajectories():
         (_, _), g = loss_and_grad(q, X_t, y_t)
         delta, ts = ttx.update(g, ts, q)
         q = tree_add(q, delta)
-    return jax.tree.leaves(p), [t.numpy() for t in q]
+    return _jax_trajectory(), [t.numpy() for t in q]
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -246,6 +331,56 @@ def test_streaming_dp_equals_single_device_stream(worlds, W, route):
         cost, grads = res[f"stream_{route}"]
         np.testing.assert_allclose(cost, float(c0), rtol=1e-10)
         _close(grads, [t.numpy() for t in g0], 1e-10, 1e-12)
+
+
+# -- tp.py -------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tp(worlds):
+    return [res["tp"] for res in worlds[8]]
+
+
+@pytest.mark.parametrize("shape", TP_MESHES)
+def test_tp_loss_equals_single_device_and_jax(tp, shape):
+    cost_j, aux_j = _jax_tp_loss(shape)
+    (c0, a0), _ = loss_and_grad(*_port(TP_CASES["loss"]))
+    for res in tp:
+        cost, alpha, L = res[f"loss_{shape}"]
+        for ref_cost, ref_alpha, ref_L in (
+                (float(c0), a0.post.alpha.numpy(), a0.post.L.numpy()),
+                (float(cost_j), np.asarray(aux_j.post.alpha),
+                 np.asarray(aux_j.post.L))):
+            np.testing.assert_allclose(cost, ref_cost, rtol=1e-10)
+            np.testing.assert_allclose(alpha, ref_alpha, rtol=1e-8)
+            np.testing.assert_allclose(L, ref_L, rtol=1e-8, atol=1e-10)
+
+
+def test_tp_gradient_equals_single_device_and_jax(tp):
+    _, g0 = loss_and_grad(*_port(TP_CASES["grad"]))
+    for res in tp:
+        for got, a, b in zip(res["grad"], g0, _jax_grad("tp")):
+            np.testing.assert_allclose(got, a.numpy(), rtol=1e-7, atol=1e-11)
+            np.testing.assert_allclose(got, np.asarray(b), rtol=1e-7,
+                                       atol=1e-11)
+
+
+def test_tp_trajectory_matches_single_device(tp):
+    for res in tp:
+        for got, ref in zip(res["trajectory"], _jax_trajectory("tp")):
+            np.testing.assert_allclose(got, np.asarray(ref), rtol=1e-6,
+                                       atol=1e-9)
+
+
+def test_tp_ranks_agree(tp):
+    for res in tp[1:]:
+        for a, b in zip(res["grad"], tp[0]["grad"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_tp_requires_divisible_features(tp):
+    for res in tp:
+        assert "divisible" in res["indivisible"]
 
 
 # -- the model ---------------------------------------------------------------
