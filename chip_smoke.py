@@ -37,8 +37,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    batches of 1, 17, 256 rows and the full 1639-row split;
 5. condition and update: set_data on the 6553 training rows, update_data
    with 256 held-out rows, recalibrate_dispersion; each posterior and each
-   prediction is held against the same computation with the plain feature
-   map on the card;
+   prediction is held against the same computation, in the model's
+   resolved GEMM arithmetic, with the plain feature map on the card;
 6. train step: cost and every gradient leaf of ``loss_and_grad``, kernel
    path against plain path, at kin8nm full width (S=8, M=269, N=6553) and at
    the bench configuration (N=8192, D=8, S=50, M=200); the median time of
@@ -134,13 +134,30 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    fit_fast_batch, at phase 6's bounds; 15c
    experiments/synthetic_scaling.py at 1 and 2 ranks (two ranks share the
    card: steps/s, no scaling result), each rank's six counts held as
-   every other path's.
+   every other path's;
+16. the precision policy (``ops/dispatch.py``), all in turn: 16a the
+   objective's Gram and Φ·L⁻ᵀ GEMMs with their backward GEMMs at the
+   kin8nm, bench and streaming-block shapes, 2-D and with 4 trials, under
+   IEEE, "default", "high", "highest" and bf16: torch.profiler must show a
+   TF32 kernel under "default" only and a bf16 kernel under bf16, each
+   product's error against float64 within its setting's rounding bound
+   (bf16 against the plain upcast product), TF32's above IEEE's, the TF32
+   switch off after every call, device ms beside IEEE's; 16b kin8nm
+   ``fit_fast`` under "auto" (TF32) and under IEEE, a TF32
+   fit in two segments and resumed from its first checkpoint bitwise the
+   one-shot fit, ``fit_fast_batch`` of 3 boston trials under "auto", the
+   streaming objective at phase 9's width under "default" against IEEE,
+   and a cut ``fit_bayes(hmc)`` that must run no TF32 kernel under "auto"
+   (and must under an explicit "default"); 16c
+   experiments/precision_quality.py at one trial a class and the co2 raw
+   legs.  Phase 16 runs in a process of its own (``precision_child``),
+   whose counts this one holds.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
 and GEMM routes, the crossover, the posterior through K3, and each path of
-phases 11 to 15; in 15b and 15c each rank counts its own launches and
-hands them back) and read just after;
+phases 11 to 16; in 15b and 15c each rank, and in 16 its process, counts
+its own launches and hands them back) and read just after;
 every training phase must launch K1f and K1b, the streaming kernel route
 K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f nor K2b,
 the crossover K4 and K3, the posterior K3, the Bayes paths K1f and K1b but
@@ -828,18 +845,18 @@ def per_trial_products(plain=False):
             torch.stack([f.pcat for f in fr]),
             torch.stack([feature_scale(q) for q in trials]))
 
-    def loss_fn(p, X, y, w=None, basis_fn=None):
+    def loss_fn(p, X, y, w=None, basis_fn=None, **prec):
         if X.dim() == 2 or w is not None:
-            return objective.loss_fn(p, X, y, w, basis_fn)
+            return objective.loss_fn(p, X, y, w, basis_fn, **prec)
         trials = [trial_of(p, b) for b in range(X.shape[0])]
         Phi = features(trials, X, basis_fn)
         return stack_trials([
-            objective.loss_from_phi(q, Phi[b].clone(), y[b].clone())
+            objective.loss_from_phi(q, Phi[b].clone(), y[b].clone(), **prec)
             for b, q in enumerate(trials)])
 
-    def loss_and_grad(p, X, y, w=None, basis_fn=None):
+    def loss_and_grad(p, X, y, w=None, basis_fn=None, **prec):
         return objective.value_and_grad(loss_fn, p, X, y, w=w,
-                                        basis_fn=basis_fn)
+                                        basis_fn=basis_fn, **prec)
 
     def predict_f(p, post, Xs, basis_fn=None):
         if Xs.dim() == 2:
@@ -2525,6 +2542,403 @@ def parallel_phase(launches, workdir):
     say("parallel", seconds=time.perf_counter() - t, parts_s=times)
 
 
+# Phase 16: the precision policy (ops/dispatch.py).  16a: the objective's
+# two GEMMs at the kin8nm, bench and streaming-block shapes (N, K), 2-D and
+# with a trial axis, forward and backward, under each setting.
+PRECISION_SHAPES = [("kin8nm", 6553, 277), ("bench", 8192, 250),
+                    ("block", STREAM["block"], STREAM["S"] + STREAM["M"])]
+PRECISION_TRIALS = 4
+PRECISION_SETTINGS = {"ieee": {}, "default": {"mm_precision": "default"},
+                      "high": {"mm_precision": "high"},
+                      "highest": {"mm_precision": "highest"},
+                      "bf16": {"mm_dtype": torch.bfloat16}}
+# An IEEE float32 product of inner dimension n is within gamma_n = n u32
+# of each entry of |A| |B| (Higham, ch. 3).  TF32 keeps 10 bits of each
+# operand's mantissa, rounded or dropped: within U_TF32 of it either way,
+# which adds 2 U_TF32 a term.  The bf16 GEMM sums exact float32 products in
+# float32 like the plain upcast version, so the two differ by at most
+# 2 gamma_n |A16| |B16|.
+U_TF32 = 2.0 ** -10
+# 16b: a cut fit_bayes (kin8nm at the Bayes width) whose every GEMM is
+# profiled; the streaming objective at phase 9's width.
+PRECISION_BAYES = dict(sampler="hmc", chains=8, num_warmup=3, num_samples=3,
+                       num_integration_steps=4)
+PRECISION_STREAM_STEPS = 3
+# TF32 keeps about three decimal digits of each operand; at the random
+# init's well conditioned Gram (cond(A) ~ 1.1, PERF.md) the streaming cost
+# and gradient under TF32 stay within these of IEEE's.  (The cost's change
+# may be below float32's resolution of it: its rounding errors average
+# over 1e6 rows; the profiled kernels show that TF32 ran.)
+PRECISION_STREAM_COST_TOL = 1e-3
+PRECISION_STREAM_GRAD_TOL = 5e-2
+# 16c: the cut quality experiment.
+PRECISION_QUALITY_ARGS = ["--trials", "1", "--co2-bases", "raw",
+                          "--skip-speed"]
+
+
+def gemm_kind(name):
+    """The arithmetic a cuBLAS GEMM kernel's name marks: "tf32" or "bf16"
+    for a tensor-core kernel of that input type, else None.  The xmma
+    kernels spell their types out (``sm90_xmma_gemm_f32f32_tf32f32_f32_*``
+    for TF32; the IEEE ones ``*_f32f32_f32f32_f32_*``); CUTLASS's float32
+    tensor-op kernels name a bf16 input (``*_tensorop_s16816gemm_bf16_*``,
+    ``*_tensorop_s1688gemm_bf16_*``) and otherwise run TF32's 16x8x8 MMA
+    (``cutlass_80_tensorop_s1688gemm_*``; the IEEE ones are
+    ``*_simt_sgemm_*``); the nvjet kernels give one letter a type after
+    ``nvjet_``, input first, and cuBLAS on an H100 runs the bf16 GEMMs
+    with float32 output as ``nvjet_tss_*``."""
+    low = name.lower()
+    if "bf16" in low or low.startswith("nvjet_t"):
+        return "bf16"
+    if "tf32" in low or ("tensorop" in low and "s1688" in low):
+        return "tf32"
+    return None
+
+
+def timed_ms(fn):
+    """Wall ms of ``fn()``, from a synchronised start to a synchronised
+    end."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def cuda_kernels(fn):
+    """``fn()`` and the names of the kernels it ran on the card
+    (torch.profiler, with the activities ``device_busy`` traces)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA})
+    check(names, "torch.profiler recorded no kernel on the card")
+    return out, names
+
+
+def precision_gemms_phase(dev):
+    """16a: each setting's Gram ΦᵀΦ and Φ·L⁻ᵀ with their backward GEMMs
+    (``models/objective.py::_gemm``): the kernels cuBLAS ran, the error of
+    the forward products against float64 within each setting's bound, the
+    process-wide TF32 switch after the call, and device ms beside IEEE's."""
+    from scfgp_tpu_torch.models.objective import _gemm
+    rows = []
+    for name, n, k in PRECISION_SHAPES:
+        for B in (None, PRECISION_TRIALS):
+            lead = () if B is None else (B,)
+            gen = torch.Generator(device=dev).manual_seed(SEED)
+            Phi = 0.1 * torch.randn(*lead, n, 2 * k, device=dev,
+                                    generator=gen)
+            Li = 0.05 * torch.randn(*lead, 2 * k, 2 * k, device=dev,
+                                    generator=gen).tril()
+            pairs = ((Phi.mT, Phi), (Phi, Li.mT))  # (a, b) of each GEMM
+            ref = [a.double() @ b.double() for a, b in pairs]
+            mag = [a.abs().double() @ b.abs().double() for a, b in pairs]
+            plain16 = [a.bfloat16().float() @ b.bfloat16().float()
+                       for a, b in pairs]
+            mag16 = [a.bfloat16().abs().double() @ b.bfloat16().abs().double()
+                     for a, b in pairs]
+            inner = (n, 2 * k)
+            row = {"shape": name, "n": n, "k": k, "trials": B}
+            for setting, kw in PRECISION_SETTINGS.items():
+                P = Phi.clone().requires_grad_()
+                L = Li.clone().requires_grad_()
+
+                def step():
+                    out = (_gemm(P.mT, P, **kw), _gemm(P, L.mT, **kw))
+                    torch.autograd.grad(out[0].sum() + (out[1] ** 2).sum(),
+                                        (P, L))
+                    return tuple(t.detach() for t in out)
+
+                before = torch.backends.cuda.matmul.allow_tf32
+                step()
+                out, names = cuda_kernels(step)
+                after = torch.backends.cuda.matmul.allow_tf32
+                err = [float((o.double() - r).abs().max() / r.abs().max())
+                       for o, r in zip(out, ref)]
+                if setting == "bf16":  # against the plain upcast product
+                    ratio = [float(((o - p).abs().double()
+                                    / (2 * m_ * U32 * c)).max())
+                             for o, p, m_, c in zip(out, plain16, mag16,
+                                                    inner)]
+                else:
+                    u = 2 * U_TF32 if setting == "default" else 0.0
+                    ratio = [float(((o.double() - r).abs()
+                                    / ((u + c * U32) * m_)).max())
+                             for o, r, m_, c in zip(out, ref, mag, inner)]
+                kinds = sorted({gemm_kind(x) for x in names} - {None})
+                row[setting] = dict(
+                    err=err, bound_ratio=ratio, kinds=kinds,
+                    gemm_kernels=[x for x in names if gemm_kind(x)
+                                  or "gemm" in x.lower()
+                                  or "nvjet" in x.lower()],
+                    tf32_after=after,
+                    ms=median_ms(step, reps=5, inner=3, hide_host=True))
+                check(before is False and after is False,
+                      f"16a {name} B={B} {setting}: the TF32 switch is "
+                      f"{after} after the call")
+                check(max(ratio) <= 1.0, f"16a {name} B={B} {setting}: "
+                      f"error outside its bound: {ratio}")
+                want = {"default": ["tf32"], "bf16": ["bf16"]}.get(setting,
+                                                                   [])
+                check(kinds == want, f"16a {name} B={B} {setting}: kernels "
+                      f"of kinds {kinds}, not {want}: {names}")
+            for setting in PRECISION_SETTINGS:
+                row[setting]["vs_ieee_ms"] = (row[setting]["ms"]
+                                              / row["ieee"]["ms"])
+            check(all(t > i for t, i in zip(row["default"]["err"],
+                                            row["ieee"]["err"])),
+                  f"16a {name} B={B}: TF32's error does not exceed IEEE's "
+                  f"({row['default']['err']} vs {row['ieee']['err']})")
+            say("precision_gemms", **row)
+            rows.append(row)
+            del Phi, Li, pairs, ref, mag, plain16, mag16
+    torch.cuda.empty_cache()
+    return rows
+
+
+def precision_training_phase(launches, dev, workdir):
+    """16b: kin8nm ``fit_fast`` under "auto" (TF32) and under IEEE, one of
+    them the constructor's default; two segments under TF32 and a resume
+    from the first checkpoint, bitwise one run; ``fit_fast_batch`` of 3
+    boston trials under "auto"; the streaming objective at phase 9's width
+    under "default" against IEEE; a cut ``fit_bayes(hmc)`` under "auto",
+    profiled whole, which must run no TF32 kernel (and one under an
+    explicit "default", which must)."""
+    import shutil
+    import warnings
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_boston, load_kin8nm
+    from scfgp_tpu_torch.experiments.boston_housing import OPT
+    from scfgp_tpu_torch.models.model import fit_fast_batch
+    from scfgp_tpu_torch.models.params import SCFGPParams, init_params
+    from scfgp_tpu_torch.ops.dispatch import (DEFAULT_MM_PRECISION,
+                                              resolve_mm_precision)
+    from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
+    Xt, yt, Xv, yv, _ = load_kin8nm(prop=0.8, seed=0)
+    const_mnlp = 0.5 * (1 + math.log(2 * math.pi * float(np.var(yv))))
+    fits = {}
+    for leg, precision in (("auto", "auto"), ("ieee", None)):
+        launches.start()
+        m = SCFGP(**KIN8NM_MODEL, seed=SEED, device="cuda",
+                  mm_precision=precision)
+        t = time.perf_counter()
+        m.fit_fast(Xt, yt, Xv, yv, **FIT_FAST_KW)
+        torch.cuda.synchronize()
+        fits[leg] = dict(setting=precision, resolved=m.mm_precision,
+                         seconds=time.perf_counter() - t,
+                         iterations=len(m.evals["COST"][1]),
+                         NMSE=m.evals["NMSE"][1][-1],
+                         MNLP=m.evals["MNLP"][1][-1],
+                         launches=launches.read(f"16b fit_fast ({leg})"))
+        check(math.isfinite(fits[leg]["NMSE"])
+              and math.isfinite(fits[leg]["MNLP"]),
+              f"16b fit_fast ({leg}): {fits[leg]}")
+    # Phase 7's quality anchor holds IEEE; TF32 is reported (PERF.md: on
+    # kin8nm it is not quality-neutral, so it is not the default).
+    check(fits["ieee"]["MNLP"] < const_mnlp - 1.0,
+          f"16b fit_fast (ieee): {fits['ieee']}")
+    check(fits["auto"]["resolved"] == "default",
+          f"16b: 'auto' resolved to {fits['auto']['resolved']}")
+    say("precision_fit_fast", const_MNLP=const_mnlp,
+        constructor_default=DEFAULT_MM_PRECISION,
+        default_resolves_to=resolve_mm_precision(DEFAULT_MM_PRECISION),
+        **fits)
+
+    # Two segments under TF32, and a resume from the first checkpoint.
+    kw = dict(FIT_FAST_KW, max_iter=2 * CHECKPOINT_EVERY)
+    ckpt = os.path.join(workdir, "tf32.ckpt")
+
+    def tf32_fit(**extra):
+        m = SCFGP(**KIN8NM_MODEL, seed=SEED, device="cuda",
+                  mm_precision="default")
+        m.fit_fast(Xt, yt, Xv, yv, **kw, **extra)
+        return m
+
+    save = SCFGP.save
+
+    def keep_first(self, path):
+        save(self, path)
+        if not os.path.exists(path + ".first"):
+            shutil.copy(path, path + ".first")
+
+    launches.start()
+    one = tf32_fit()
+    SCFGP.save = keep_first
+    try:
+        seg = tf32_fit(checkpoint_path=ckpt,
+                       checkpoint_every=CHECKPOINT_EVERY)
+    finally:
+        SCFGP.save = save
+    resumed = SCFGP(device="cuda", mm_precision="default").load(
+        ckpt + ".first")
+    resumed_at = int(resumed._fused_train_state["state"].it)
+    resumed.set_data(Xt, yt)
+    resumed.optimize_fused(Xv, yv, resume=True, recalibrate=True)
+    counts = launches.read("16b fit_fast TF32 segments")
+    same = {name: params_equal(one.params, m.params)
+            and one.evals["COST"][1] == m.evals["COST"][1]
+            for name, m in (("segments", seg), ("resumed", resumed))}
+    say("precision_resume", iterations=len(one.evals["COST"][1]),
+        resumed_at=resumed_at, bitwise=same, launches=counts)
+    check(0 < resumed_at < len(one.evals["COST"][1]) and all(same.values()),
+          f"16b: a TF32 run in segments or resumed differs: {same}, "
+          f"resumed at {resumed_at}")
+
+    # fit_fast_batch under "auto".
+    data = [load_boston(seed=b)[:4] for b in range(PARALLEL_BATCH)]
+    ms = [SCFGP(sparsity=20, nfeats=30, seed=b, device="cuda",
+                mm_precision="auto") for b in range(PARALLEL_BATCH)]
+    launches.start()
+    fit_fast_batch(ms, data, **OPT)
+    counts = launches.read("16b fit_fast_batch (auto)")
+    iters = max(len(m.evals["COST"][1]) for m in ms)
+    say("precision_fit_fast_batch", resolved=[m.mm_precision for m in ms],
+        NMSE=[m.evals["NMSE"][1][-1] for m in ms], iterations=iters,
+        launches=counts)
+    check(all(m.mm_precision == "default" for m in ms)
+          and all(math.isfinite(m.evals["NMSE"][1][-1]) for m in ms)
+          and counts["phi_bwd"] == iters,
+          "16b fit_fast_batch under auto: not TF32, not finite, or K1b "
+          "not once a step")
+
+    # The streaming objective at phase 9's width, made on the card.
+    cfg = STREAM
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    X = torch.rand(cfg["N"], cfg["D"], device=dev, generator=gen)
+    y = torch.sin(X[:, :8].sum(dim=1)) + 0.1 * torch.randn(
+        cfg["N"], device=dev, generator=gen)
+    p0 = SCFGPParams(*[t.to(dev) for t in init_params(
+        torch.Generator().manual_seed(SEED), cfg["D"], cfg["S"], cfg["M"])])
+    stream = {}
+    for leg, precision in (("ieee", None), ("default", "default")):
+        launches.start()
+
+        def grad():
+            return loss_and_grad_streaming(p0, X, y, block_size=cfg["block"],
+                                           mm_precision=precision)
+        ((cost, aux), g), names = cuda_kernels(grad)
+        counts = launches.read(f"16b streaming ({leg})",
+                               none=CHOL_KERNELS + ("gram_fwd", "gram_bwd"))
+        times = [timed_ms(grad) for _ in range(PRECISION_STREAM_STEPS)]
+        stream[leg] = dict(cost=float(cost), grads=g, step_ms=times,
+                           kinds=sorted({gemm_kind(x) for x in names}
+                                        - {None}), launches=counts)
+    e_cost = abs(stream["default"]["cost"] - stream["ieee"]["cost"]) / abs(
+        stream["ieee"]["cost"])
+    e_grad = grad_errors(stream["default"].pop("grads"),
+                         stream["ieee"].pop("grads"))
+    say("precision_streaming", n=cfg["N"], d=cfg["D"], s=cfg["S"],
+        m=cfg["M"], block=cfg["block"], cost_rel_err=e_cost,
+        grad_rel_err=e_grad, cost_tol=PRECISION_STREAM_COST_TOL,
+        grad_tol=PRECISION_STREAM_GRAD_TOL, **stream)
+    check(stream["ieee"]["kinds"] == [] and stream["default"]["kinds"]
+          == ["tf32"], f"16b streaming: kernels of kinds "
+          f"{stream['ieee']['kinds']}, {stream['default']['kinds']}")
+    check(math.isfinite(e_cost) and e_cost <= PRECISION_STREAM_COST_TOL
+          and max(e_grad.values()) <= PRECISION_STREAM_GRAD_TOL,
+          f"16b streaming TF32 against IEEE: {e_cost}, {e_grad}")
+    del X, y
+    torch.cuda.empty_cache()
+
+    # fit_bayes: under "auto" the samplers run no TF32 GEMM.
+    bayes = {}
+    for leg, precision in (("auto", "auto"), ("explicit", "default")):
+        m = SCFGP(**BAYES_MODEL, seed=SEED, device="cuda",
+                  mm_precision=precision)
+        launches.start()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # R-hat of a cut run
+            _, names = cuda_kernels(
+                lambda: m.fit_bayes(Xt, yt, **PRECISION_BAYES))
+        kinds = sorted({gemm_kind(x) for x in names} - {None})
+        bayes[leg] = dict(resolved=m.mm_precision, kinds=kinds,
+                          launches=launches.read(f"16b fit_bayes ({leg})"))
+    say("precision_fit_bayes", **bayes)
+    check(bayes["auto"]["kinds"] == [] and bayes["explicit"]["kinds"]
+          == ["tf32"], f"16b fit_bayes: kernels of kinds {bayes}")
+
+
+def precision_quality_phase(launches, workdir):
+    """16c: experiments/precision_quality.py cut to one trial a class and
+    the co2 raw-basis legs; every fit finite, the co2 composite under IEEE
+    within CO2_PIN of its floor."""
+    from scfgp_tpu_torch.experiments import precision_quality
+    launches.start()
+    rec = precision_quality.main(PRECISION_QUALITY_ARGS + ["--out", workdir])
+    counts = launches.read("16c precision_quality (cut)")
+    say("precision_quality", launches=counts,
+        **{k: rec[k] for k in ("quality", "co2_composite")})
+    check(all(math.isfinite(leg[k]["mean"]) for q in rec["quality"].values()
+              for leg in (q["highest"], q["default"]) for k in ("NMSE",
+                                                                "MNLP")),
+          "16c: a fit is not finite")
+    over = rec["co2_composite"]["raw_highest"].get("nmse_over_floor")
+    check(over is None or over <= CO2_PIN,
+          f"16c: co2 composite under IEEE at {over} of its floor")
+
+
+def precision_child(workdir):
+    """Phase 16 in a process of its own (``--precision-phase WORKDIR``):
+    16a and 16b read the kernels' names from torch.profiler, which late in
+    this script's own process recorded no kernel on an H100 (three whole
+    runs), though in a fresh process it does.  The kernels are already
+    built (phase 2); each path's launch counts go to
+    ``WORKDIR/launches.json`` for the parent to hold."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
+                                              cholesky_inverse_cuda)
+    from scfgp_tpu_torch.ops.gram import (sufficient_stats_bwd_cuda,
+                                          sufficient_stats_cuda)
+    from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
+                                         fourier_features_cuda)
+    launches = Launches(phi_fwd=fourier_features_cuda,
+                        phi_bwd=fourier_features_bwd_cuda,
+                        gram_fwd=sufficient_stats_cuda,
+                        gram_bwd=sufficient_stats_bwd_cuda,
+                        cholesky=cholesky_cuda,
+                        cholesky_inverse=cholesky_inverse_cuda)
+    precision_phase(launches, torch.device("cuda"), workdir)
+    with open(os.path.join(workdir, "launches.json"), "w") as f:
+        json.dump(launches.by_path, f)
+    return 0
+
+
+def precision_phase_apart(launches, workdir):
+    """Phase 16 through ``precision_child``, its JSON lines in this
+    script's output; every path's counts held here as the others'."""
+    sys.stdout.flush()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--precision-phase", workdir], cwd=ROOT,
+                         timeout=900)
+    check(res.returncode == 0, f"phase 16 failed (exit {res.returncode})")
+    with open(os.path.join(workdir, "launches.json")) as f:
+        for path, counts in json.load(f).items():
+            launches.record(path, counts)
+
+
+def precision_phase(launches, dev, workdir):
+    """Phase 16, 16a-16c in turn."""
+    t = time.perf_counter()
+    times = {}
+    for name, fn, *args in (
+            ("16a", precision_gemms_phase, dev),
+            ("16b", precision_training_phase, launches, dev, workdir),
+            ("16c", precision_quality_phase, launches, workdir)):
+        t0 = time.perf_counter()
+        fn(*args)
+        times[name] = time.perf_counter() - t0
+    say("precision", seconds=time.perf_counter() - t, parts_s=times)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2786,9 +3200,10 @@ def main():
 
     # 5. condition and update -----------------------------------------------
     _, t_set = timed(lambda: m.set_data(Xt, yt))
-    with torch.inference_mode():
+    with torch.inference_mode():  # in the model's resolved GEMM arithmetic
         cost_ref, aux_ref = loss_from_phi(m.params, ref_phi(m.params, m.X),
-                                          m.y)
+                                          m.y, mm_dtype=m.mm_dtype,
+                                          mm_precision=m.mm_precision)
     e_post = check_post(m.post, aux_ref.post, "set_data")
     e_cost = abs(float(m.cost) - float(cost_ref)) / abs(float(cost_ref))
     check(e_cost <= COST_TOL, f"set_data cost differs: {e_cost}")
@@ -2796,7 +3211,8 @@ def main():
     e_pred = check_pred((mu, sd), ref_predict(m, m.params, aux_ref.post, Xv),
                         "after set_data")
     say("set_data", rows=m.N, seconds=t_set, predict_s=t_pred,
-        cost=float(m.cost), post_rel_err=e_post, cost_rel_err=e_cost,
+        mm_precision=m.mm_precision, cost=float(m.cost),
+        post_rel_err=e_post, cost_rel_err=e_cost,
         pred_rel_err=e_pred, NMSE=m.evals["NMSE"][1][-1],
         MNLP=m.evals["MNLP"][1][-1], k1_launches=counted("set_data"))
 
@@ -3048,6 +3464,11 @@ def main():
     parallel_phase(launches, par_dir.name)
     par_dir.cleanup()
 
+    # 16. the precision policy, in a process of its own ------------------
+    prec_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_precision_")
+    precision_phase_apart(launches, prec_dir.name)
+    prec_dir.cleanup()
+
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",
                 {**k1, **{"batch-" + n: r for n, r in k1_batch.items()}},
@@ -3105,4 +3526,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--precision-phase"]:
+        sys.exit(precision_child(sys.argv[2]))
     sys.exit(main())

@@ -57,7 +57,8 @@ class _Data:
 def make_logposterior(X, y, D, S, M, temperature: float = 1.0,
                       include_phases: bool = False, phases=None,
                       streaming_block: int = 0, basis_fn=None,
-                      n_scale: int | None = None):
+                      n_scale: int | None = None, mm_dtype=None,
+                      mm_precision=None):
     """log p(θ | data) up to a constant: ``-0.5 * n * cost / temperature``
     (the reference's cost is (nlml + penalty)/N, ``reference:
     SCFGP/SCFGP.py:125-128``).
@@ -74,19 +75,27 @@ def make_logposterior(X, y, D, S, M, temperature: float = 1.0,
     ``-0.5 * N * cost``: the full data size for a minibatch estimator
     (``bayes/sgld.py``).  ``streaming_block > 0`` takes the cost from
     ``loss_fn_streaming`` in blocks of that many rows (the residual form
-    summed in its pass 2), the chains as its trial axis."""
+    summed in its pass 2), the chains as its trial axis.
+
+    ``mm_dtype`` and ``mm_precision`` (``ops/dispatch.py``) set the
+    arithmetic of the posterior's two O(N K²) GEMMs, so the chain samples
+    the posterior of that arithmetic (``scfgp_tpu/bayes/predictive.py:
+    57-70``): ``mm_precision`` dense and streaming, ``mm_dtype`` dense only
+    (ignored with ``streaming_block``, as in the JAX package).
+    ``SCFGP.fit_bayes`` passes only settings given explicitly."""
     n = X.shape[0] if n_scale is None else int(n_scale)
     if streaming_block:
         def cost_of(p):
             return loss_fn_streaming(p, X, y, block_size=int(streaming_block),
-                                     basis_fn=basis_fn, residual_fit=True)[0]
+                                     basis_fn=basis_fn, residual_fit=True,
+                                     mm_precision=mm_precision)[0]
     else:
         data = _Data(X, y)
 
         def cost_of(p):
             Xc, yc = data.of(tuple(p.a.shape))
-            return loss_fn(p, Xc, yc, basis_fn=basis_fn,
-                           residual_fit=True)[0]
+            return loss_fn(p, Xc, yc, basis_fn=basis_fn, residual_fit=True,
+                           mm_dtype=mm_dtype, mm_precision=mm_precision)[0]
     if phases is None:
         pinned = torch.zeros(S + M, dtype=X.dtype, device=X.device)
     else:

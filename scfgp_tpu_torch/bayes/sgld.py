@@ -44,7 +44,8 @@ class SGLDResult(NamedTuple):
 
 def make_minibatch_value_and_grad(X, y, D, S, M, batch_size: int,
                                   basis_fn=None,
-                                  streaming_block: int = 0) -> Callable:
+                                  streaming_block: int = 0, mm_dtype=None,
+                                  mm_precision=None) -> Callable:
     """``(q, rows) -> (vals (C,), grads (C, P))`` over (C, P) positions.
 
     With ``0 < batch_size < N`` the estimator has attributes ``n`` and
@@ -52,18 +53,22 @@ def make_minibatch_value_and_grad(X, y, D, S, M, batch_size: int,
     and the value is the N-scaled log posterior of those rows.  Otherwise
     ``rows`` is None and the value is the full log posterior (ULA), in
     blocks of ``streaming_block`` rows when it is positive
-    (``scfgp_tpu/bayes/sgld.py:69-103``)."""
+    (``scfgp_tpu/bayes/sgld.py:69-103``).  ``mm_dtype`` and
+    ``mm_precision``: the log posterior's GEMM arithmetic, as in
+    ``make_logposterior``."""
     n = X.shape[0]
+    prec = dict(mm_dtype=mm_dtype, mm_precision=mm_precision)
     if batch_size and batch_size < n:
         def value_and_grad(q, rows):
             lp = make_logposterior(X[rows], y[rows], D, S, M,
-                                   basis_fn=basis_fn, n_scale=n)
+                                   basis_fn=basis_fn, n_scale=n, **prec)
             return batched_value_and_grad(lp)(q)
 
         value_and_grad.n, value_and_grad.batch_size = n, int(batch_size)
         return value_and_grad
     vg = batched_value_and_grad(make_logposterior(
-        X, y, D, S, M, basis_fn=basis_fn, streaming_block=streaming_block))
+        X, y, D, S, M, basis_fn=basis_fn, streaming_block=streaming_block,
+        **prec))
     return lambda q, rows: vg(q)
 
 

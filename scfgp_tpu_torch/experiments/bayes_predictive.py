@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from ..data.datasets import load_abalone, load_boston, load_co2, load_kin8nm
+from ..ops.dispatch import DEFAULT_MM_PRECISION
 from ..utils.metrics import regression_metrics
 from .boston_housing import RESULTS
 from .co2 import ADAMAX, seasonal_trend_basis
@@ -260,7 +261,11 @@ def main(argv=None) -> dict:
             print(json.dumps({"dataset": name, "arm": a, "summary": s}),
                   flush=True)
         payload = {"device": device, "quick": quick,
-                   "arithmetic": "IEEE float32, TF32 off",
+                   "arithmetic": {
+                       "fits": "mm_precision=%r (ops/dispatch.py)"
+                               % DEFAULT_MM_PRECISION,
+                       "samplers": "IEEE float32: auto settings stay off "
+                                   "the samplers"},
                    "bayes_budgets": {a: arm_budget(a, quick) for a in BAYES},
                    "dataset_configs": {
                        k: {kk: vv for kk, vv in v.items() if kk != "co2"}

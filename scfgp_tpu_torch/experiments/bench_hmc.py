@@ -14,14 +14,19 @@ JAX's ``--mode fused`` compiles each sampler into one program and its
 ``--mode host`` loops over one compiled transition.  The port's samplers
 are host loops either way (its ``*_host_looped`` entries are the same
 samplers under JAX's signatures), so the two modes are one here:
-``--mode`` is accepted for JAX's command line and changes nothing.  JAX's
-``--mm-precision`` is not carried: the port is IEEE float32, TF32 off.
+``--mode`` is accepted for JAX's command line and changes nothing.
+``--mm-precision`` (``experiments/bench_hmc.py:32-43``) sets the log
+posterior's GEMM arithmetic (``ops/dispatch.py``): "global" (the
+default) leaves it IEEE, the arithmetic ``fit_bayes`` gives its samplers
+under "auto"; "default" takes the Gram and Φ·L⁻ᵀ in TF32, the explicit
+speed lever; "highest" IEEE again.
 Each leg runs once, timed to the host's read of its draws; one batched
 gradient before the legs builds the kernels.
 
     python -m scfgp_tpu_torch.experiments.bench_hmc [--chains 8]
         [--n 2048] [--warmup 100] [--samples 100] [--mode fused|host]
-        [--legs hmc,nuts,...] [--skip-nuts] [--cpu] [--out DIR]
+        [--legs hmc,nuts,...] [--skip-nuts]
+        [--mm-precision global|default|highest] [--cpu] [--out DIR]
 
 One JSON line a leg; writes ``<out>/bench_hmc.json`` (default
 ``scfgp_tpu_torch/experiments/results/hmc/``).  On the card unless
@@ -48,7 +53,7 @@ D, S, M = 8, 20, 50
 LEGS = ("hmc", "nuts", "nuts_static", "sgld_b256")
 
 
-def legs(args, logpost, X, y):
+def legs(args, logpost, X, y, mm_precision=None):
     """``{name: run(init, generator) -> result}`` of the legs."""
     w, n = args.warmup, args.samples
     out = {"hmc": lambda q, g: hmc_sample(
@@ -62,7 +67,8 @@ def legs(args, logpost, X, y):
             logpost, q, g, num_warmup=w, num_samples=n, depth=5,
             init_step_size=0.003)
     out["sgld_b256"] = lambda q, g: sgld_sample(
-        make_minibatch_value_and_grad(X, y, D, S, M, 256), q, g,
+        make_minibatch_value_and_grad(X, y, D, S, M, 256,
+                                      mm_precision=mm_precision), q, g,
         num_warmup=w * 10, num_samples=n * 10, step_size=1e-5)
     return out
 
@@ -88,6 +94,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--mode", choices=["fused", "host"], default="fused",
                     help="JAX's; one and the same host loop here")
     ap.add_argument("--skip-nuts", action="store_true")
+    ap.add_argument("--mm-precision", default="global",
+                    choices=["default", "highest", "global"],
+                    help="the log posterior's GEMM arithmetic: 'global' "
+                         "leaves it IEEE (fit_bayes's under 'auto'), "
+                         "'default' takes TF32")
     ap.add_argument("--legs", default=None,
                     help="comma-separated subset of " + ",".join(LEGS))
     ap.add_argument("--cpu", action="store_true",
@@ -98,13 +109,14 @@ def main(argv=None) -> dict:
     Xn, yn = synthetic_gp_rff(n=args.n, d=D, s=S, m=M, noise_std=0.1,
                               seed=0, dtype=np.float32)
     X, y = (torch.as_tensor(a, device=dev) for a in (Xn, yn))
-    logpost = make_logposterior(X, y, D, S, M)
+    mp = None if args.mm_precision == "global" else args.mm_precision
+    logpost = make_logposterior(X, y, D, S, M, mm_precision=mp)
     P = reduced_dim(D, S, M)
     gen = torch.Generator().manual_seed(0)
     init = torch.stack([pack_params(init_params(gen, D, S, M))[:P]
                         for _ in range(args.chains)]).to(dev)
     batched_value_and_grad(logpost)(init)  # builds the kernels
-    runs = legs(args, logpost, X, y)
+    runs = legs(args, logpost, X, y, mp)
     if args.legs:
         wanted = {s.strip() for s in args.legs.split(",")}
         runs = {k: v for k, v in runs.items() if k in wanted}
@@ -131,7 +143,8 @@ def main(argv=None) -> dict:
             "mean_depth": (float(res.mean_depth)
                            if hasattr(res, "mean_depth") else None),
             "gradients": grads, "gradients_per_s": grads / dt,
-            "seconds": dt, "chains": args.chains, "dim": P, "n": args.n}
+            "seconds": dt, "chains": args.chains, "dim": P, "n": args.n,
+            "mm_precision": args.mm_precision}
         print(json.dumps({name: results[name]}), flush=True)
     outdir = args.out or os.path.join(RESULTS, "hmc")
     os.makedirs(outdir, exist_ok=True)

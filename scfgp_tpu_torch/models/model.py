@@ -27,12 +27,18 @@ Parallelism (``parallel/``): ``optimize_fused(mesh=...)`` (and
 ``fit_fast``) trains one model data-parallel, its rows split over the
 mesh's ``data`` ranks; ``fit_fast_batch(mesh=...)`` splits the trials
 over them.  Every rank calls the same method on the same data, and every
-rank's model ends with the same params, posterior and metrics.  The JAX
-package's non-finite refit under an auto-resolved 1-pass TPU matmul
-precision (``_precision_fallback_needed``, ``model.py:1488-1518``, and
-its per-trial form in ``fit_fast_batch``, ``:310-322``) has no
-counterpart: the port computes in IEEE float32 with TF32 off, so the
-condition it guards can never arise.
+rank's model ends with the same params, posterior and metrics.
+
+Precision (``ops/dispatch.py``): ``mm_dtype`` and ``mm_precision``, the
+arithmetic of the objective's two O(N K²) GEMMs, resolve at ``set_data``
+by the JAX package's rules ("auto": TF32 on the card for ordinary models,
+IEEE for composites).  ``mm_precision`` defaults to None, IEEE: on the
+card TF32 failed the JAX package's quality criterion on kin8nm
+(``DEFAULT_MM_PRECISION``).  A fit whose objective goes non-finite under an
+auto-resolved "default" is refit once at IEEE with a warning
+(``_precision_fallback_needed``, ``scfgp_tpu/models/model.py:1488-1518``;
+per trial in ``fit_fast_batch``, ``:310-322``), and ``fit_bayes``'s
+samplers run IEEE unless a setting was given explicitly.
 """
 
 from __future__ import annotations
@@ -51,6 +57,8 @@ from ..opt.fused_loop import (fused_optimize, fused_optimize_batch,
                               set_generator_state)
 from ..opt.optimizers import algos, make_optimizer, tree_add, tree_map
 from ..ops.collectives import gather_rows
+from ..ops.dispatch import (DEFAULT_MM_PRECISION, resolve_mm_dtype,
+                            resolve_mm_precision)
 from ..parallel.mesh import DATA_AXIS, replicated, shard_rows
 from ..parallel.multihost import is_coordinator
 from ..utils.logging import MetricLogger
@@ -98,7 +106,9 @@ def fit_fast_batch(models, datasets, **opt_params):
     """Train B same-shape models as one batched fused loop
     (``scfgp_tpu/models/model.py:180-323``).
 
-    ``models``: SCFGP instances sharing (S, M, extra_basis, dtype, device);
+    ``models``: SCFGP instances sharing (S, M, extra_basis, mm_dtype,
+    mm_precision, dtype, device), the settings as ``set_data`` resolves
+    them;
     ``datasets``: the matching ``(X, y)`` or ``(X, y, Xv, yv)`` tuples of
     identical shapes (the reference's sweep shape: a fresh random split a
     trial, ``reference: experiments/boston_housing/boston_housing.py:80``).
@@ -121,7 +131,12 @@ def fit_fast_batch(models, datasets, **opt_params):
     ``fused_optimize_batch``, and the results are gathered, so every rank's
     models get every trial's.  Each rank's loop stops when its own trials
     are done; a finished trial is frozen, so its result does not depend on
-    when the others stop."""
+    when the others stop.
+
+    A trial whose objective ends non-finite under an auto-resolved
+    ``mm_precision="default"`` is refit alone at IEEE by
+    ``optimize_fused``, with a warning (``scfgp_tpu/models/model.py:
+    310-322``)."""
     if len(models) != len(datasets):
         raise ValueError("models and datasets must have equal length")
     mesh = opt_params.pop("mesh", None)
@@ -132,14 +147,15 @@ def fit_fast_batch(models, datasets, **opt_params):
         m.set_data(d[0], d[1])
 
     def shape(m, d):
-        return (m.S, m.M, m.N, m.D, m.extra_basis, m.dtype, m.device,
-                len(d), np.shape(d[2]) if len(d) == 4 else None)
+        return (m.S, m.M, m.N, m.D, m.extra_basis, m.mm_dtype,
+                m.mm_precision, m.dtype, m.device, len(d),
+                np.shape(d[2]) if len(d) == 4 else None)
     cfg = shape(models[0], datasets[0])
     if any(shape(m, d) != cfg for m, d in zip(models, datasets)):
         raise ValueError(
             "fit_fast_batch requires identical (S, M, N, D, extra_basis, "
-            "dtype, device) and validation shapes across models; got a "
-            "mismatch")
+            "mm_dtype, mm_precision, dtype, device) and validation shapes "
+            "across models; got a mismatch")
     m0 = models[0]
     obj = opt_params.get("obj", "COST").upper()
     obj = obj if obj in m0.evals else "COST"
@@ -163,15 +179,16 @@ def fit_fast_batch(models, datasets, **opt_params):
                            zip(*[m.params for m in run_models])])
     X = torch.stack([_trainable(m.X) for m in run_models])
     y = torch.stack([_trainable(m.y) for m in run_models])
-    basis = m0.extra_basis
+    prec = dict(basis_fn=m0.extra_basis, mm_dtype=m0.mm_dtype,
+                mm_precision=m0.mm_precision)
 
     def value_and_grad(q):
-        (cost, aux), grads = loss_and_grad(q, X, y, basis_fn=basis)
+        (cost, aux), grads = loss_and_grad(q, X, y, **prec)
         return (cost, aux.post), grads
 
     def eval_fn(q):
         with torch.no_grad():
-            cost, aux = loss_fn(q, X, y, basis_fn=basis)
+            cost, aux = loss_fn(q, X, y, **prec)
         return cost, aux.post
 
     obj_fn = None
@@ -214,6 +231,11 @@ def fit_fast_batch(models, datasets, **opt_params):
             m._predict_scaled_and_log(m._scale_X(d[2]),
                                       np.asarray(d[3]).reshape(-1, 1))
         m.min_obj_ind = -1
+    # A trial the auto-resolved TF32 broke is refit alone at IEEE.
+    for m, d in zip(models, datasets):
+        if m._precision_fallback_needed():
+            m._engage_precision_fallback("fit_fast_batch")
+            m.optimize_fused(*d[2:4], **opt_params)
     return models
 
 
@@ -312,8 +334,17 @@ class SCFGP:
                  X_scaling_method: str = "auto-inv-normal",
                  y_scaling_method: str = "auto-normal",
                  verbose: bool = False, seed: Optional[int] = None,
-                 dtype=torch.float32, extra_basis=None, fftype=None,
+                 dtype=torch.float32, extra_basis=None, mm_dtype=None,
+                 mm_precision: Optional[str] = DEFAULT_MM_PRECISION,
+                 fftype=None,
                  msg=None, device="cuda"):
+        # mm_dtype and mm_precision (ops/dispatch.py): the arithmetic of
+        # the objective's two O(N K^2) GEMMs.  None (mm_precision's default
+        # here, DEFAULT_MM_PRECISION, where the JAX package's is "auto")
+        # keeps IEEE float32.  "auto" resolves at set_data, when N is
+        # known: mm_precision to TF32 on the card ("default") for ordinary
+        # models and IEEE ("highest") for composite extra_basis ones;
+        # mm_dtype to bf16 only at N (2K)^2 >= 6.8e10.
         # Legacy v0.1.0 ctor compatibility (reference README.md:44-52;
         # ``SCFGP(rank, feature_size, fftype, msg)``): the 3rd/4th
         # positionals were the Fourier-feature-type flag and the print flag
@@ -331,6 +362,10 @@ class SCFGP:
         self.S = sparsity
         self.M = nfeats
         self.extra_basis = extra_basis
+        self.mm_dtype = mm_dtype
+        self.mm_precision = mm_precision
+        self._mm_dtype_auto = False       # mm_dtype resolved from "auto"
+        self._mm_precision_auto = False   # mm_precision resolved from "auto"
         self.X_scaler = Scaler(X_scaling_method)
         self.y_scaler = Scaler(y_scaling_method)
         self.evals = new_evals_dict() if evals is None else evals
@@ -404,19 +439,37 @@ class SCFGP:
         self._stats = None  # update_data cache: params/data changed
         self.N, self.D = self.X.shape
         self.S = resolve_sparsity(self.S, self.D, self.M)
+        composite = self.extra_basis is not None
+        if isinstance(self.mm_dtype, str):
+            self.mm_dtype = resolve_mm_dtype(
+                self.mm_dtype, self.N, 2 * (self.S + self.M), composite)
+            self._mm_dtype_auto = True
+        if self.mm_precision == "auto":
+            self.mm_precision = resolve_mm_precision(self.mm_precision,
+                                                     composite)
+            self._mm_precision_auto = True
         if self.params is None:
             self.message("-" * 60, "\nInitializing SCFGP hyperparameters...")
-            gen = torch.Generator().manual_seed(
-                self._rng.randint(0, 2**31 - 1))
-            self.params = SCFGPParams(*[
-                t.to(self.device) for t in
-                init_params(gen, self.D, self.S, self.M, self.dtype)])
+            self._init_params()
             self.message("done.")
         else:
             with torch.inference_mode():
                 self.cost, aux = loss_fn(self.params, self.X, self.y,
-                                         basis_fn=self.extra_basis)
+                                         **self._loss_kw())
             self.post = aux.post
+
+    def _init_params(self):
+        """Fresh params from one seed of ``self._rng``."""
+        gen = torch.Generator().manual_seed(self._rng.randint(0, 2**31 - 1))
+        self.params = SCFGPParams(*[
+            t.to(self.device) for t in
+            init_params(gen, self.D, self.S, self.M, self.dtype)])
+
+    def _loss_kw(self):
+        """The objective's keywords of this model: its extra basis and GEMM
+        arithmetic."""
+        return dict(basis_fn=self.extra_basis, mm_dtype=self.mm_dtype,
+                    mm_precision=self.mm_precision)
 
     def _stats_of(self, X, y):
         return sufficient_stats(
@@ -431,7 +484,9 @@ class SCFGP:
         sufficient statistic (ΦᵀΦ, Φᵀy, yᵀy, N — ``reference:
         SCFGP/SCFGP.py:104,108,126``), so conditioning on new rows is a
         statistics update plus one 2K x 2K re-solve.  Scalers and
-        hyperparameters stay fixed."""
+        hyperparameters stay fixed.  The statistics are IEEE, and the
+        jitter follows ``mm_dtype``
+        (``scfgp_tpu/models/model.py:1555-1561``)."""
         if self.params is None or self.X is None:
             raise RuntimeError("update_data() before fit: train first "
                                "(hyperparameters and scalers must exist)")
@@ -442,7 +497,8 @@ class SCFGP:
         new = self._stats_of(Xn, yn)
         self._stats = type(new)(*[a + b for a, b in zip(self._stats, new)])
         self.post = solve_posterior(self._stats,
-                                    torch.exp(2.0 * self.params.a))
+                                    torch.exp(2.0 * self.params.a),
+                                    mm_dtype=self.mm_dtype)
         self.X = torch.cat([self.X, Xn], dim=0)
         self.y = torch.cat([self.y, yn])
         self.N = int(self.X.shape[0])
@@ -479,22 +535,21 @@ class SCFGP:
 
     def _eval_fn(self):
         """Loss WITHOUT update (reference train_func, ``SCFGP.py:134-135``)."""
-        basis = self.extra_basis
+        kw = self._loss_kw()
 
         def eval_fn(p, X, y, w=None, axis_name=None):
             with torch.no_grad():
-                return loss_fn(p, X, y, w, basis_fn=basis,
-                               axis_name=axis_name)
+                return loss_fn(p, X, y, w, axis_name=axis_name, **kw)
         return eval_fn
 
     def _make_step(self, tx):
         """Loss + grad + optimizer update (the reference's train_iter_func,
         ``SCFGP.py:136-137``): ``(params, opt_state, X, y) -> (params,
         opt_state, cost, post)``, ``post`` at the params before the step."""
-        basis = self.extra_basis
+        kw = self._loss_kw()
 
         def step(params, opt_state, X, y):
-            (cost, aux), grads = loss_and_grad(params, X, y, basis_fn=basis)
+            (cost, aux), grads = loss_and_grad(params, X, y, **kw)
             delta, opt_state = tx.update(grads, opt_state, params)
             return tree_add(params, delta), opt_state, cost, aux.post
         return step
@@ -677,6 +732,10 @@ class SCFGP:
             self._predict_scaled_and_log(Xv_t, yv_arr)
         self.min_obj_ind = len(self.evals["COST"][1]) - 1
         logger.close()
+        if self._precision_fallback_needed():
+            self._engage_precision_fallback("optimize")
+            args = {k: v for k, v in args.items() if k != "resume"}
+            return self.optimize(Xv, yv, funcs, visualizer, **args)
         if checkpoint_path:
             self.save(checkpoint_path)
         disp = self.verbose
@@ -787,11 +846,11 @@ class SCFGP:
             set_generator_state(generator, fts["state"].key)
             loop_state = opt_state_from_numpy(fts["state"], self.device)
         tx = make_optimizer(algo["algo"], algo.get("algo_params"))
-        basis = self.extra_basis
+        kw = self._loss_kw()
 
         def value_and_grad(q):
-            (cost, aux), grads = loss_and_grad(q, X, y, w, basis_fn=basis,
-                                               axis_name=group)
+            (cost, aux), grads = loss_and_grad(q, X, y, w, axis_name=group,
+                                               **kw)
             return (cost, aux.post), grads
 
         eval_loss = self._eval_fn()
@@ -858,7 +917,41 @@ class SCFGP:
         # final entry per validation metric): -1 is the best-params entry
         # of every series.
         self.min_obj_ind = -1
+        if self._precision_fallback_needed():
+            self._engage_precision_fallback("optimize_fused")
+            args = {k: v for k, v in args.items() if k != "resume"}
+            return self.optimize_fused(Xv, yv, **args)
         return self
+
+    def _precision_fallback_needed(self) -> bool:
+        """Whether the fit just finished ended non-finite (its last cost or
+        its params) under an auto-resolved ``mm_precision="default"``
+        (``scfgp_tpu/models/model.py:1488-1508``).  The quality rule of
+        ``ops/dispatch.py`` is by model class; some configurations defeat
+        the reduced arithmetic only through their trained noise scale.
+        An explicit setting is never overridden."""
+        if self.mm_precision != "default" or not self._mm_precision_auto:
+            return False
+        hist = self.evals["COST"][1]
+        bad_cost = bool(hist) and not math.isfinite(hist[-1])
+        bad_params = self.params is not None and not all(
+            bool(torch.isfinite(t).all()) for t in self.params)
+        return bad_cost or bad_params
+
+    def _engage_precision_fallback(self, context):
+        """Warn, switch to IEEE (``mm_precision=None``) for good, and draw
+        fresh params if the broken fit left non-finite ones
+        (``scfgp_tpu/models/model.py:1510-1518, 951-956``)."""
+        import warnings
+        warnings.warn(
+            "%s: non-finite objective under the auto 1-pass matmul "
+            "precision — refitting at true f32 (mm_precision=None). Pass "
+            "mm_precision explicitly to choose a fixed arithmetic "
+            "(ops/dispatch.py)." % context, stacklevel=3)
+        self.mm_precision = None
+        self._mm_precision_auto = False
+        if not all(bool(torch.isfinite(t).all()) for t in self.params):
+            self._init_params()
 
     def fit_fast(self, X, y, Xv=None, yv=None, **opt_params):
         """One-call fused training: set_data + optimize_fused."""
@@ -877,12 +970,17 @@ class SCFGP:
         (``reference: boston_housing.py:90-102``).
 
         After this call ``predict`` returns the mixture, and ``params`` /
-        ``post`` hold the best single member."""
+        ``post`` hold the best single member.  The members take this
+        model's ``mm_dtype`` and its ``mm_precision``, "auto" if it was
+        auto-resolved, so that their non-finite refit stays armed."""
+        precision = ("auto" if self._mm_precision_auto
+                     or self.mm_precision == "auto" else self.mm_precision)
         members = [SCFGP(sparsity=self.S, nfeats=self.M,
                          X_scaling_method=self.X_scaler.algo,
                          y_scaling_method=self.y_scaler.algo,
                          seed=self._rng.randint(0, 2**31 - 1),
                          dtype=self.dtype, extra_basis=self.extra_basis,
+                         mm_dtype=self.mm_dtype, mm_precision=precision,
                          device=self.device)
                    for _ in range(int(k))]
         has_val = Xv is not None and yv is not None
@@ -986,12 +1084,14 @@ class SCFGP:
         second call with the same key skips the probe and the warmup and
         continues the chains (the swap parity too).
 
-        Three parameters do not act as in the JAX package.  ``segment`` is
-        accepted and the run is one-shot: segmented and one-shot runs are
-        the same in law there, and segmenting existed only for a TPU
-        worker's execution limit.  The samplers run in IEEE float32 with
-        TF32 off (the port has no ``mm_dtype``/``mm_precision``), what the
-        JAX package forces on its samplers anyway.
+        ``segment`` does not act as in the JAX package: it is accepted and
+        the run is one-shot, since segmented and one-shot runs are the same
+        in law there, and segmenting existed only for a TPU worker's
+        execution limit.  The samplers' log posterior takes this model's
+        ``mm_dtype`` and ``mm_precision`` only where they were given
+        explicitly: an auto-resolved setting leaves the samplers IEEE
+        (``scfgp_tpu/models/model.py:1205-1234``), since an accept ratio
+        exponentiates N-scaled differences of the log posterior.
 
         ``streaming_block > 0`` takes every log posterior (the sampler's,
         the tempered probe's and its ladder's) and ``predict_bayes``'s
@@ -1020,9 +1120,16 @@ class SCFGP:
                                  init_jitter)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self._rng.randint(0, 2**31 - 1))
+        # Sampling is not fitting: an auto-resolved setting stays a lever
+        # of the fits; only an explicit one reaches the samplers.
+        prec = dict(
+            mm_dtype=None if self._mm_dtype_auto else self.mm_dtype,
+            mm_precision=(None if self._mm_precision_auto
+                          else self.mm_precision))
         logpost = make_logposterior(self.X, self.y, self.D, self.S, self.M,
                                     basis_fn=self.extra_basis,
-                                    streaming_block=int(streaming_block))
+                                    streaming_block=int(streaming_block),
+                                    **prec)
         hmc_kw = dict(num_integration_steps=num_integration_steps,
                       init_step_size=float(init_step_size),
                       target_accept=float(target_accept))
@@ -1086,7 +1193,7 @@ class SCFGP:
             vg = make_minibatch_value_and_grad(
                 self.X, self.y, self.D, self.S, self.M, int(batch_size),
                 basis_fn=self.extra_basis,
-                streaming_block=int(streaming_block))
+                streaming_block=int(streaming_block), **prec)
             res = sgld_sample(vg, init, gen, num_warmup=num_warmup,
                               num_samples=num_samples,
                               step_size=float(init_step_size),

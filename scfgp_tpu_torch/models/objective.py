@@ -17,8 +17,16 @@ on the CPU.  ``chol_and_inverse`` carries the JAX package's all-GEMM
 backward, and ``loss_and_grad`` is ``jax.value_and_grad(loss_fn,
 has_aux=True)``.  The reference quirks stay: the feature scale uses M, not S+M
 (``SCFGP.py:102``), and the nlml carries ``2 (N - M) a``
-(``SCFGP.py:125-126``).  The JAX package's TPU matrix-unit levers
-(``mm_dtype``, ``mm_precision``) are not part of this module.
+(``SCFGP.py:125-126``).
+
+Precision (``ops/dispatch.py``): the two O(N K²) GEMMs, the Gram ΦᵀΦ
+(``sufficient_stats``) and Φ·L⁻ᵀ (``latent_moments``), and their backward
+GEMMs go through ``_gemm``, which takes the JAX package's ``mm_dtype``
+(bf16 operands, float32 products and sums: ``_ReducedDot``) and
+``mm_precision`` (TF32 on the card for "default", IEEE otherwise:
+``_PrecisionDot``); ``solve_posterior(mm_dtype=)`` scales the jitter to
+the Gram's rounding, as ``scfgp_tpu/models/objective.py:246-270`` does.
+Everything else stays IEEE float32.
 
 Data parallelism: with ``axis_name`` (a process group, such as
 ``mesh.group("data")`` of a mesh of ``parallel/mesh.py``) ``loss_fn`` takes this rank's rows and
@@ -45,6 +53,7 @@ import torch
 
 from ..ops.cholesky import chol_inverse_bwd, cholesky_inverse_ref
 from ..ops.collectives import all_reduce_sum, axis_size, psum
+from ..ops.dispatch import matmul_tf32, uses_tf32
 from ..ops.phi import FourierFeatures
 from .params import SCFGPParams, derive_frequencies, feature_scale
 
@@ -105,20 +114,110 @@ def fourier_features(p: SCFGPParams, X: torch.Tensor) -> torch.Tensor:
     return FourierFeatures.apply(X, d.Fcat, d.pcat, feature_scale(p))
 
 
+def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of reduced-precision operands as float32: on the card one
+    cuBLAS tensor-core GEMM with float32 output (``aten::mm.dtype``,
+    ``aten::bmm.dtype``; a missing overload raises), on the CPU the plain
+    version, the operands upcast first (each product of two bf16 values is
+    exact in float32, so it is the same function summed in another
+    order).  A leading trial axis, the same on both operands, is a batched
+    GEMM."""
+    if not a.is_cuda:
+        return a.float() @ b.float()
+    if a.dim() == 2:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a, b, out_dtype=torch.float32)
+
+
+class _ReducedDot(torch.autograd.Function):
+    """``a @ b`` with ``dtype`` operands and float32 products and sums, in
+    the forward GEMM and both backward GEMMs; the result and the gradients
+    in the operands' dtype (``_rp_dot`` with its custom VJP,
+    ``scfgp_tpu/models/objective.py:112-139``).  The operands are saved
+    already cast, and the cotangent is cast before the backward GEMMs."""
+
+    @staticmethod
+    def forward(ctx, a, b, dtype):
+        a16, b16 = a.to(dtype), b.to(dtype)
+        ctx.save_for_backward(a16, b16)
+        ctx.dtype = dtype
+        return _bmm_f32(a16, b16).to(a.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a16, b16 = ctx.saved_tensors
+        g16 = g.to(ctx.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _bmm_f32(g16, b16.mT).to(g.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _bmm_f32(a16.mT, g16).to(g.dtype)
+        return da, db, None
+
+
+class _PrecisionDot(torch.autograd.Function):
+    """``a @ b`` with TF32 on (``tf32``) or off for this GEMM and for its two
+    backward GEMMs, each direction setting the switch around its own GEMMs
+    and restoring it after (``ops/dispatch.py::matmul_tf32``): the backward
+    runs on autograd's thread, outside any scope around the forward call.
+    The counterpart of the JAX dot's ``precision`` attribute, which its
+    transpose rule carries into the backward."""
+
+    @staticmethod
+    def forward(ctx, a, b, tf32):
+        ctx.save_for_backward(a, b)
+        ctx.tf32 = tf32
+        with matmul_tf32(tf32):
+            return a @ b
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        with matmul_tf32(ctx.tf32):
+            if ctx.needs_input_grad[0]:
+                da = g @ b.mT
+            if ctx.needs_input_grad[1]:
+                db = a.mT @ g
+        return da, db, None
+
+
+def _gemm(a: torch.Tensor, b: torch.Tensor, mm_dtype=None,
+          mm_precision=None) -> torch.Tensor:
+    """One of the objective's O(N K²) GEMMs under the precision policy
+    (``scfgp_tpu/models/objective.py:142-171``; ``ops/dispatch.py``):
+    ``mm_dtype`` operands with float32 sums (``_ReducedDot``; the
+    precision then has no say, as in the JAX package), else TF32 for
+    ``mm_precision="default"`` and IEEE for "high" and "highest"
+    (``_PrecisionDot``), else the plain product under the process-wide
+    setting."""
+    if mm_dtype is not None:
+        return _ReducedDot.apply(a, b, mm_dtype)
+    if mm_precision is None:
+        return a @ b
+    return _PrecisionDot.apply(a, b, uses_tf32(mm_precision))
+
+
 def sufficient_stats(Phi: torch.Tensor, y: torch.Tensor,
-                     w: Optional[torch.Tensor] = None) -> SufficientStats:
+                     w: Optional[torch.Tensor] = None, mm_dtype=None,
+                     mm_precision=None) -> SufficientStats:
     """Accumulate the row-sum statistics, optionally weighted so that
     zero-weight padding rows change nothing; per trial for Phi (B, N, 2K)
-    and y (B, N)."""
+    and y (B, N).  The Gram under ``mm_dtype``/``mm_precision``
+    (``_gemm``)."""
     y = y.reshape(Phi.shape[:-1])
     if w is None:
         return SufficientStats(
-            phiTphi=Phi.mT @ Phi, phiTy=_mv(Phi.mT, y),
+            phiTphi=_gemm(Phi.mT, Phi, mm_dtype, mm_precision),
+            phiTy=_mv(Phi.mT, y),
             yTy=torch.sum(y * y, dim=-1),
             n=torch.full(Phi.shape[:-2], Phi.shape[-2], dtype=Phi.dtype,
                          device=Phi.device))
     w = w.reshape(Phi.shape[:-1]).to(Phi.dtype)
-    return SufficientStats(phiTphi=Phi.mT @ (Phi * w.unsqueeze(-1)),
+    return SufficientStats(phiTphi=_gemm(Phi.mT, Phi * w.unsqueeze(-1),
+                                         mm_dtype, mm_precision),
                            phiTy=_mv(Phi.mT, w * y),
                            yTy=torch.sum(w * y * y, dim=-1),
                            n=torch.sum(w, dim=-1))
@@ -160,14 +259,23 @@ def chol_and_inverse(A: torch.Tensor):
 
 
 def solve_posterior(stats: SufficientStats, sig2_n: torch.Tensor,
-                    epsilon: float = EPSILON) -> Posterior:
+                    epsilon: float = EPSILON, mm_dtype=None) -> Posterior:
     """Cholesky-solve the 2K x 2K normal equations (``SCFGP.py:105-110``),
-    per trial with a trial axis."""
+    per trial with a trial axis.
+
+    With ``mm_dtype`` the Gram was summed from reduced-precision operands,
+    so its entries carry about eps(mm_dtype) of the diagonal in rounding,
+    more than the fixed jitter covers once the noise is small: the jitter
+    grows by ``eps(mm_dtype) trace(ΦᵀΦ) / 2K``, per trial
+    (``scfgp_tpu/models/objective.py:246-270``)."""
     n2k = stats.phiTphi.shape[-1]
     eye = torch.eye(n2k, dtype=stats.phiTphi.dtype,
                     device=stats.phiTphi.device)
-    L, Li = chol_and_inverse(stats.phiTphi
-                             + _trial(sig2_n + epsilon, 2) * eye)
+    jitter = sig2_n + epsilon
+    if mm_dtype is not None:
+        jitter = jitter + torch.finfo(mm_dtype).eps * torch.diagonal(
+            stats.phiTphi, dim1=-2, dim2=-1).sum(-1) / n2k
+    L, Li = chol_and_inverse(stats.phiTphi + _trial(jitter, 2) * eye)
     beta = _mv(Li, stats.phiTy)
     alpha = _mv(Li.mT, beta)
     return Posterior(L=L, Li=Li, alpha=alpha, beta=beta,
@@ -175,10 +283,12 @@ def solve_posterior(stats: SufficientStats, sig2_n: torch.Tensor,
                                                          dim2=-1)))
 
 
-def latent_moments(Phi: torch.Tensor, post: Posterior):
+def latent_moments(Phi: torch.Tensor, post: Posterior, mm_dtype=None,
+                   mm_precision=None):
     """Per-row posterior mean and variance of the latent f
-    (``SCFGP.py:111-112``): ``var_f = rowsum((Phi Liᵀ)²)``."""
-    PhiLiT = Phi @ post.Li.mT
+    (``SCFGP.py:111-112``): ``var_f = rowsum((Phi Liᵀ)²)``, its GEMM under
+    ``mm_dtype``/``mm_precision`` (``_gemm``)."""
+    PhiLiT = _gemm(Phi, post.Li.mT, mm_dtype, mm_precision)
     return _mv(Phi, post.alpha), torch.sum(PhiLiT * PhiLiT, dim=-1)
 
 
@@ -222,7 +332,8 @@ def feature_block(p: SCFGPParams, X: torch.Tensor,
 
 def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
                   w: Optional[torch.Tensor] = None,
-                  residual_fit: bool = False, axis_name=None):
+                  residual_fit: bool = False, axis_name=None, mm_dtype=None,
+                  mm_precision=None):
     """``loss_fn`` given the feature block ``Phi`` of the training rows.
 
     The data-fit term ``(yᵀy - βᵀβ) / σ²`` is the reference's
@@ -235,15 +346,17 @@ def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
     noise that stalls HMC; the residual form is ~1e-2 (PERF.md).
     Its error is also second order in α's, since α minimises it.
     ``axis_name``: the rows are this rank's, and every row sum is
-    all-reduced over that group (module docstring)."""
+    all-reduced over that group (module docstring).  ``mm_dtype`` and
+    ``mm_precision``: the arithmetic of the two O(N K²) GEMMs
+    (``ops/dispatch.py``)."""
     y = y.reshape(Phi.shape[:-1])
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
-    stats = sufficient_stats(Phi, y, w)
+    stats = sufficient_stats(Phi, y, w, mm_dtype, mm_precision)
     if axis_name is not None:
         stats = psum_stats(stats, axis_name)
-    post = solve_posterior(stats, sig2_n)
-    mu_f, var_f = latent_moments(Phi, post)
+    post = solve_posterior(stats, sig2_n, mm_dtype=mm_dtype)
+    mu_f, var_f = latent_moments(Phi, post, mm_dtype, mm_precision)
     enll_rows = expected_nll_rows(mu_f, var_f, y, noise)
     if w is not None:
         w = w.reshape(y.shape).to(enll_rows.dtype)
@@ -271,15 +384,18 @@ def loss_from_phi(p: SCFGPParams, Phi: torch.Tensor, y: torch.Tensor,
 
 def loss_fn(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
             w: Optional[torch.Tensor] = None, basis_fn=None,
-            residual_fit: bool = False, axis_name=None):
+            residual_fit: bool = False, axis_name=None, mm_dtype=None,
+            mm_precision=None):
     """SCFGP objective ``cost = (nlml + penalty) / N`` (``SCFGP.py:92-128``
     term by term).  Returns ``(cost, LossAux)``.  ``residual_fit``: see
     ``loss_from_phi``.  With ``axis_name`` (a process group, such as
     ``mesh.group("data")``) ``X``, ``y`` and ``w`` are this rank's rows, and the
     statistics and the expected-NLL sum are all-reduced over the group, so
-    the cost is the full batch's on every rank."""
+    the cost is the full batch's on every rank.  ``mm_dtype`` and
+    ``mm_precision``: the arithmetic of the Gram and Φ·L⁻ᵀ GEMMs
+    (``ops/dispatch.py``; None and None, the default, is IEEE float32)."""
     return loss_from_phi(p, feature_block(p, X, basis_fn), y, w,
-                         residual_fit, axis_name)
+                         residual_fit, axis_name, mm_dtype, mm_precision)
 
 
 def predict_from_phi(p: SCFGPParams, post: Posterior, Phis: torch.Tensor):
@@ -337,9 +453,10 @@ def value_and_grad(loss, p: SCFGPParams, *args, replicas=None, **kwargs):
 
 def loss_and_grad(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
                   w: Optional[torch.Tensor] = None, basis_fn=None,
-                  axis_name=None):
+                  axis_name=None, mm_dtype=None, mm_precision=None):
     """``value_and_grad`` of ``loss_fn``
     (``scfgp_tpu/models/objective.py:403``); with ``axis_name`` the
     data-parallel loss and the global gradient, on every rank."""
     return value_and_grad(loss_fn, p, X, y, w=w, basis_fn=basis_fn,
-                          axis_name=axis_name)
+                          axis_name=axis_name, mm_dtype=mm_dtype,
+                          mm_precision=mm_precision)

@@ -26,8 +26,12 @@ batched block is one K1f (K1b) launch whatever B, so a batched streaming
 gradient launches them as often as a 1-trial one.  The ``"kernel"`` route
 takes no trial axis: K2f and K2b have none (ROADMAP.md Queue 2).
 
-The JAX package's TPU levers (``feature_impl``, ``mm_precision``) are
-not carried, as in the port's ``loss_fn``.  ``axis_name`` (a process
+``mm_precision`` (``ops/dispatch.py``) sets the arithmetic of each
+block's Gram on the ``"gemm"`` route and of each block's Φ·L⁻ᵀ on both
+routes, with their backward GEMMs, as in ``loss_fn``
+(``scfgp_tpu/ops/streaming.py:55-68``); K2f and K2b keep their own
+arithmetic.  The JAX package's ``feature_impl`` is not carried: the
+feature map is K1f and K1b on the card.  ``axis_name`` (a process
 group) is: each rank streams its own rows, and pass 1's statistics and pass 2's row sums are
 all-reduced over the group (``scfgp_tpu/ops/streaming.py:109-135``), on
 either route.
@@ -65,7 +69,8 @@ class _Stream:
     """The row blocks of (X, y, w) and each block's features for params
     ``p``, per trial when ``p`` has a leading trial axis."""
 
-    def __init__(self, p, X, y, w, block_size, stats_impl, basis_fn):
+    def __init__(self, p, X, y, w, block_size, stats_impl, basis_fn,
+                 mm_precision=None):
         if stats_impl not in STATS_IMPLS:
             raise ValueError(f"stats_impl must be one of {STATS_IMPLS}, got "
                              f"{stats_impl!r}")
@@ -87,6 +92,7 @@ class _Stream:
         self.X, self.y = X, y.reshape(-1)
         self.w = None if w is None else w.reshape(-1).to(X.dtype)
         self.basis_fn, self.stats_impl = basis_fn, stats_impl
+        self.mm_precision = mm_precision
         # The JAX package pads the last block with zero-weight rows
         # (streaming.py:34-45); a shorter last block gives the same sums
         # and copies nothing (X may be gigabytes).
@@ -129,7 +135,8 @@ class _Stream:
             def stats_block(Xi, yi, wi):
                 return _checkpointed(
                     lambda Xi, yi, wi: tuple(sufficient_stats(
-                        self.features(Xi), self.trial(yi), self.trial(wi))),
+                        self.features(Xi), self.trial(yi), self.trial(wi),
+                        mm_precision=self.mm_precision)),
                     Xi, yi, wi)
         stats = None
         for b in self.blocks:
@@ -154,7 +161,7 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
                       w: Optional[torch.Tensor] = None,
                       block_size: int = 4096, stats_impl: str = "gemm",
                       basis_fn=None, residual_fit: bool = False,
-                      axis_name=None):
+                      axis_name=None, mm_precision=None):
     """``loss_fn`` with O(block_size) memory: ``(cost, LossAux)``.
 
     ``stats_impl="gemm"`` (the JAX package's ``"xla"``, the default) forms
@@ -168,8 +175,10 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     with a trial axis B give cost (B,) (module docstring).  With
     ``axis_name`` (a process group, such as ``mesh.group("data")``) ``X``,
     ``y`` and ``w`` are this rank's rows and every row sum is all-reduced over
-    the group, as in ``loss_fn``."""
-    st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn)
+    the group, as in ``loss_fn``.  ``mm_precision``: the arithmetic of pass
+    1's Gram on the ``"gemm"`` route and of pass 2's Φ·L⁻ᵀ on both routes
+    (``ops/dispatch.py``; the JAX package's takes no ``mm_dtype`` here)."""
+    st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn, mm_precision)
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
     stats = st.stats()
@@ -178,7 +187,8 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     post = solve_posterior(stats, sig2_n)
 
     def enll_block(Xi, yi, wi):
-        mu_f, var_f = latent_moments(st.features(Xi), post)
+        mu_f, var_f = latent_moments(st.features(Xi), post,
+                                     mm_precision=mm_precision)
         yi, wi = st.trial(yi), st.trial(wi)
         e = expected_nll_rows(mu_f, var_f, yi, noise)
         r2 = (mu_f - yi) ** 2 if residual_fit else None
@@ -216,5 +226,6 @@ def loss_and_grad_streaming(p: SCFGPParams, X: torch.Tensor,
                             **kwargs):
     """``((cost, LossAux), grads)`` of ``loss_fn_streaming``: the step of
     ``experiments/tpu_streaming_1m.py:49-57`` without the optimizer; with
-    ``axis_name`` the global gradient on every rank."""
+    ``axis_name`` the global gradient on every rank; ``mm_precision`` as
+    there."""
     return value_and_grad(loss_fn_streaming, p, X, y, w=w, **kwargs)

@@ -739,3 +739,93 @@ def test_dynamic_nuts_transition_on_card_matches_plain(cuda_device):
     err = float((z - z_p).abs().max()) / max(1.0, float(z0.abs().max()))
     assert err <= 1e-4, err
     assert bool(torch.isfinite(z).all())
+
+
+PRECISION_CASES = ["ieee", "default", "high", "highest", "bf16"]
+
+
+def _precision_inputs(n, k, B, device):
+    gen = torch.Generator(device=device).manual_seed(0)
+    lead = () if B is None else (B,)
+    Phi = 0.1 * torch.randn(*lead, n, 2 * k, device=device, generator=gen)
+    Li = 0.05 * torch.randn(*lead, 2 * k, 2 * k, device=device,
+                            generator=gen).tril()
+    return Phi, Li
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [None, 3])
+@pytest.mark.parametrize("setting", PRECISION_CASES)
+def test_precision_gemms_on_card(cuda_device, setting, B):
+    """chip_smoke 16a at (N, K) = (3000, 130): the Gram and Φ·L⁻ᵀ with their
+    backward GEMMs (``models/objective.py::_gemm``) run a TF32 kernel under
+    "default" only and a bf16 kernel under bf16; each forward product is
+    within its setting's rounding bound of float64 (bf16: of the plain
+    upcast product), and the TF32 switch is off after the call."""
+    from chip_smoke import (PRECISION_SETTINGS, U32, U_TF32, cuda_kernels,
+                            gemm_kind)
+    from scfgp_tpu_torch.models.objective import _gemm
+    kw = PRECISION_SETTINGS[setting]
+    n, k = 3000, 130
+    Phi, Li = _precision_inputs(n, k, B, cuda_device)
+    P, L = Phi.clone().requires_grad_(), Li.clone().requires_grad_()
+
+    def step():
+        out = (_gemm(P.mT, P, **kw), _gemm(P, L.mT, **kw))
+        torch.autograd.grad(out[0].sum() + (out[1] ** 2).sum(), (P, L))
+        return tuple(t.detach() for t in out)
+
+    step()
+    out, names = cuda_kernels(step)
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    kinds = sorted({gemm_kind(x) for x in names} - {None})
+    assert kinds == {"default": ["tf32"], "bf16": ["bf16"]}.get(setting, []), \
+        names
+    for o, (a, b), inner in zip(out, ((Phi.mT, Phi), (Phi, Li.mT)),
+                                (n, 2 * k)):
+        if setting == "bf16":
+            a, b = a.bfloat16(), b.bfloat16()
+            diff = (o - a.float() @ b.float()).abs().double()
+            bound = 2 * inner * U32 * (a.abs().double() @ b.abs().double())
+        else:
+            diff = (o.double() - a.double() @ b.double()).abs()
+            u = 2 * U_TF32 if setting == "default" else 0.0
+            bound = (u + inner * U32) * (a.abs().double() @ b.abs().double())
+        assert bool((diff <= bound).all()), float((diff / bound).max())
+
+
+@pytest.mark.cuda
+def test_tf32_error_exceeds_ieee_on_card(cuda_device):
+    """TF32 ran: its Gram is further from float64 than IEEE's, and the
+    reduced-precision products take float32 output (``aten::mm.dtype``)."""
+    from scfgp_tpu_torch.models.objective import _gemm
+    Phi, _ = _precision_inputs(3000, 130, None, cuda_device)
+    ref = Phi.double().mT @ Phi.double()
+    errs = {p: float((_gemm(Phi.mT, Phi, mm_precision=p).double() - ref)
+                     .abs().max()) for p in ("default", "highest")}
+    assert errs["default"] > 10 * errs["highest"], errs
+    a16 = Phi.bfloat16()
+    assert torch.mm(a16.mT, a16, out_dtype=torch.float32).dtype \
+        == torch.float32
+    assert torch.bmm(a16[None].mT, a16[None],
+                     out_dtype=torch.float32).dtype == torch.float32
+
+
+@pytest.mark.cuda
+def test_fit_fast_under_tf32_resumes_bitwise_on_card(cuda_device, tmp_path):
+    """A TF32 fit in two checkpointed segments equals its one-shot run
+    bitwise (cuBLAS's TF32 GEMMs repeat under the fixed workspace that
+    importing chip_smoke sets before the first GEMM)."""
+    Xt, yt, Xv, yv, _ = load_kin8nm(seed=0)
+    kw = dict(obj="SCORE", max_iter=30, cvrg_tol=1e-5, max_cvrg=8)
+
+    def fit(**extra):
+        m = SCFGP(sparsity=-1, nfeats=50, seed=0, device="cuda",
+                  mm_precision="default")
+        m.fit_fast(Xt[:2000], yt[:2000], Xv, yv, **kw, **extra)
+        return m
+
+    one = fit()
+    seg = fit(checkpoint_path=str(tmp_path / "c.ckpt"), checkpoint_every=10)
+    assert all(torch.equal(a, b) for a, b in zip(one.params, seg.params))
+    assert one.evals["COST"][1] == seg.evals["COST"][1]

@@ -309,14 +309,18 @@ def test_sgld_scale_driver_runs_its_legs_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():
-    """The streaming Bayes path and the new drivers, in a fresh process."""
+    """The streaming Bayes path, the precision policy and the new drivers,
+    in a fresh process."""
     code = ("import sys, scfgp_tpu_torch.bayes, scfgp_tpu_torch.bayes.nuts,"
             " scfgp_tpu_torch.ops.streaming,"
             " scfgp_tpu_torch.experiments.bayes_predictive,"
             " scfgp_tpu_torch.experiments.bench_hmc,"
             " scfgp_tpu_torch.experiments.sgld_scale,"
             " scfgp_tpu_torch.experiments.bayes_precision,"
-            " scfgp_tpu_torch.parallel, scfgp_tpu_torch.parallel.launch;"
+            " scfgp_tpu_torch.parallel, scfgp_tpu_torch.parallel.launch,"
+            " scfgp_tpu_torch.ops.dispatch,"
+            " scfgp_tpu_torch.experiments.precision_quality,"
+            " scfgp_tpu_torch.experiments.precision_matrix;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
             "m.startswith('scfgp_tpu.')];"
