@@ -146,12 +146,14 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    ``fit_fast`` under "auto" (TF32) and under IEEE, a TF32
    fit in two segments and resumed from its first checkpoint bitwise the
    one-shot fit, ``fit_fast_batch`` of 3 boston trials under "auto", the
-   streaming objective at phase 9's width under "default" against IEEE,
-   and a cut ``fit_bayes(hmc)`` that must run no TF32 kernel under "auto"
-   (and must under an explicit "default"); 16c
-   experiments/precision_quality.py at one trial a class and the co2 raw
-   legs.  Phase 16 runs in a process of its own (``precision_child``),
-   whose counts this one holds.
+   streaming objective at phase 9's width under "default" against IEEE
+   where the Gram dominates the jitter, and a cut ``fit_bayes(hmc)`` that
+   must run no TF32 kernel under "auto" (and must under an explicit
+   "default"); 16c experiments/precision_quality.py at one trial a class
+   and the co2 raw legs.  Each profile (``utils/profiling.py::
+   kernel_profile``) reports the least lag from a launch to its kernel.
+   Phase 16 runs in a process of its own (``precision_child``), whose
+   counts this one holds.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
@@ -922,30 +924,23 @@ def params_equal(a, b):
 
 def device_busy(fn, steps=10):
     """(device ms per call, wall ms per call, busy share, the six kernels
-    with the most device ms per call) of ``steps`` calls under
-    torch.profiler: the device time is the sum of the kernels' time on the
-    card (one stream, so they do not overlap)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
+    with the most device ms per call) of ``steps`` calls after one
+    (``utils/profiling.py::kernel_profile``)."""
+    from scfgp_tpu_torch.utils.profiling import kernel_profile
+    prof = kernel_profile(fn, calls=steps)
+    top = sorted(prof["kernels"].items(), key=lambda kv: -kv[1])[:6]
+    return (prof["device_ms"], prof["wall_ms"],
+            prof["device_ms"] / prof["wall_ms"], {k[:60]: v for k, v in top})
+
+
+def timed(fn):
+    """``fn()`` and its wall seconds, from a synchronised start to a
+    synchronised end."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / steps
-    # Kernels only: a CPU op (aten::mm) also carries the device time of the
-    # kernels it launched, which would count it twice.
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA
-              and e.self_device_time_total > 0]
-    dev = sum(e.self_device_time_total for e in events) / 1e3 / steps
-    check(dev > 0, "torch.profiler recorded no device time")
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    return dev, wall, dev / wall, {
-        e.key[:60]: e.self_device_time_total / 1e3 / steps for e in top}
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
 
 
 def grad_errors(g, ref):
@@ -2564,13 +2559,22 @@ U_TF32 = 2.0 ** -10
 PRECISION_BAYES = dict(sampler="hmc", chains=8, num_warmup=3, num_samples=3,
                        num_integration_steps=4)
 PRECISION_STREAM_STEPS = 3
-# TF32 keeps about three decimal digits of each operand; at the random
-# init's well conditioned Gram (cond(A) ~ 1.1, PERF.md) the streaming cost
-# and gradient under TF32 stay within these of IEEE's.  (The cost's change
-# may be below float32's resolution of it: its rounding errors average
-# over 1e6 rows; the profiled kernels show that TF32 ran.)
-PRECISION_STREAM_COST_TOL = 1e-3
-PRECISION_STREAM_GRAD_TOL = 5e-2
+# 16b compares the streaming objective under TF32 with IEEE where the Gram
+# dominates the jitter, as in a trained fit: phase 9's init with its
+# frequencies l_F scaled by 0.1 (smoother, correlated features) and the
+# noise a = -1 (sig2_n = e^-2).  At the init itself the D=256 features are
+# nearly orthogonal, cond(A) ~ 1.5, and TF32's rounding barely reaches the
+# cost.  Here (cond(A) 4.5e3) the card reads a cost error of 4.3e-6 and
+# gradient errors up to 0.19, in b's: a sum over 1e6 rows that cancels to
+# a small value (r_F 1.1e-2, the other leaves below 4e-4; PERF.md).  The
+# tolerances are about 4.7x and 2.7x those readings, and TF32 must move
+# the cost or a gradient leaf.
+PRECISION_STREAM_FREQ_SCALE = 0.1
+PRECISION_STREAM_NOISE_A = -1.0
+PRECISION_STREAM_COST_TOL = 2e-5
+PRECISION_STREAM_GRAD_TOL = 0.5
+# Calls in each profile of 16a.
+PRECISION_PROFILE_CALLS = 3
 # 16c: the cut quality experiment.
 PRECISION_QUALITY_ARGS = ["--trials", "1", "--co2-bases", "raw",
                           "--skip-speed"]
@@ -2595,38 +2599,13 @@ def gemm_kind(name):
     return None
 
 
-def timed_ms(fn):
-    """Wall ms of ``fn()``, from a synchronised start to a synchronised
-    end."""
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3
-
-
-def cuda_kernels(fn):
-    """``fn()`` and the names of the kernels it ran on the card
-    (torch.profiler, with the activities ``device_busy`` traces)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    names = sorted({e.key for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA})
-    check(names, "torch.profiler recorded no kernel on the card")
-    return out, names
-
-
 def precision_gemms_phase(dev):
     """16a: each setting's Gram ΦᵀΦ and Φ·L⁻ᵀ with their backward GEMMs
     (``models/objective.py::_gemm``): the kernels cuBLAS ran, the error of
     the forward products against float64 within each setting's bound, the
     process-wide TF32 switch after the call, and device ms beside IEEE's."""
     from scfgp_tpu_torch.models.objective import _gemm
+    from scfgp_tpu_torch.utils.profiling import kernel_profile
     rows = []
     for name, n, k in PRECISION_SHAPES:
         for B in (None, PRECISION_TRIALS):
@@ -2656,8 +2635,8 @@ def precision_gemms_phase(dev):
                     return tuple(t.detach() for t in out)
 
                 before = torch.backends.cuda.matmul.allow_tf32
-                step()
-                out, names = cuda_kernels(step)
+                prof = kernel_profile(step, calls=PRECISION_PROFILE_CALLS)
+                out, names = prof["out"], sorted(prof["kernels"])
                 after = torch.backends.cuda.matmul.allow_tf32
                 err = [float((o.double() - r).abs().max() / r.abs().max())
                        for o, r in zip(out, ref)]
@@ -2677,7 +2656,7 @@ def precision_gemms_phase(dev):
                     gemm_kernels=[x for x in names if gemm_kind(x)
                                   or "gemm" in x.lower()
                                   or "nvjet" in x.lower()],
-                    tf32_after=after,
+                    tf32_after=after, launch_lag_us=prof["launch_lag_us"],
                     ms=median_ms(step, reps=5, inner=3, hide_host=True))
                 check(before is False and after is False,
                       f"16a {name} B={B} {setting}: the TF32 switch is "
@@ -2720,6 +2699,7 @@ def precision_training_phase(launches, dev, workdir):
     from scfgp_tpu_torch.ops.dispatch import (DEFAULT_MM_PRECISION,
                                               resolve_mm_precision)
     from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
+    from scfgp_tpu_torch.utils.profiling import kernel_profile
     Xt, yt, Xv, yv, _ = load_kin8nm(prop=0.8, seed=0)
     const_mnlp = 0.5 * (1 + math.log(2 * math.pi * float(np.var(yv))))
     fits = {}
@@ -2807,39 +2787,51 @@ def precision_training_phase(launches, dev, workdir):
           "16b fit_fast_batch under auto: not TF32, not finite, or K1b "
           "not once a step")
 
-    # The streaming objective at phase 9's width, made on the card.
+    # The streaming objective at phase 9's width, made on the card, where
+    # the Gram dominates the jitter.
     cfg = STREAM
     gen = torch.Generator(device=dev).manual_seed(SEED)
     X = torch.rand(cfg["N"], cfg["D"], device=dev, generator=gen)
     y = torch.sin(X[:, :8].sum(dim=1)) + 0.1 * torch.randn(
         cfg["N"], device=dev, generator=gen)
-    p0 = SCFGPParams(*[t.to(dev) for t in init_params(
-        torch.Generator().manual_seed(SEED), cfg["D"], cfg["S"], cfg["M"])])
+    init = init_params(torch.Generator().manual_seed(SEED), cfg["D"],
+                       cfg["S"], cfg["M"])
+    p0 = SCFGPParams(*[t.to(dev) for t in init._replace(
+        l_F=init.l_F * PRECISION_STREAM_FREQ_SCALE,
+        a=torch.tensor(PRECISION_STREAM_NOISE_A))])
     stream = {}
     for leg, precision in (("ieee", None), ("default", "default")):
-        launches.start()
-
         def grad():
             return loss_and_grad_streaming(p0, X, y, block_size=cfg["block"],
                                            mm_precision=precision)
-        ((cost, aux), g), names = cuda_kernels(grad)
+        launches.start()
+        prof = kernel_profile(grad, warmup=0)
         counts = launches.read(f"16b streaming ({leg})",
                                none=CHOL_KERNELS + ("gram_fwd", "gram_bwd"))
-        times = [timed_ms(grad) for _ in range(PRECISION_STREAM_STEPS)]
+        (cost, aux), g = prof["out"]
+        times = [timed(grad)[1] * 1e3 for _ in range(PRECISION_STREAM_STEPS)]
         stream[leg] = dict(cost=float(cost), grads=g, step_ms=times,
-                           kinds=sorted({gemm_kind(x) for x in names}
-                                        - {None}), launches=counts)
+                           kinds=sorted({gemm_kind(x) for x in prof["kernels"]}
+                                        - {None}), launches=counts,
+                           launch_lag_us=prof["launch_lag_us"])
+        if precision is None:
+            L = aux.post.L.double()
+            cond = float(torch.linalg.cond(L @ L.mT))
     e_cost = abs(stream["default"]["cost"] - stream["ieee"]["cost"]) / abs(
         stream["ieee"]["cost"])
     e_grad = grad_errors(stream["default"].pop("grads"),
                          stream["ieee"].pop("grads"))
     say("precision_streaming", n=cfg["N"], d=cfg["D"], s=cfg["S"],
-        m=cfg["M"], block=cfg["block"], cost_rel_err=e_cost,
+        m=cfg["M"], block=cfg["block"],
+        freq_scale=PRECISION_STREAM_FREQ_SCALE,
+        noise_a=PRECISION_STREAM_NOISE_A, cond_A=cond, cost_rel_err=e_cost,
         grad_rel_err=e_grad, cost_tol=PRECISION_STREAM_COST_TOL,
         grad_tol=PRECISION_STREAM_GRAD_TOL, **stream)
     check(stream["ieee"]["kinds"] == [] and stream["default"]["kinds"]
           == ["tf32"], f"16b streaming: kernels of kinds "
           f"{stream['ieee']['kinds']}, {stream['default']['kinds']}")
+    check(e_cost > 0 or max(e_grad.values()) > 0,
+          "16b streaming: TF32 moved neither the cost nor a gradient leaf")
     check(math.isfinite(e_cost) and e_cost <= PRECISION_STREAM_COST_TOL
           and max(e_grad.values()) <= PRECISION_STREAM_GRAD_TOL,
           f"16b streaming TF32 against IEEE: {e_cost}, {e_grad}")
@@ -2854,9 +2846,9 @@ def precision_training_phase(launches, dev, workdir):
         launches.start()
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")  # R-hat of a cut run
-            _, names = cuda_kernels(
-                lambda: m.fit_bayes(Xt, yt, **PRECISION_BAYES))
-        kinds = sorted({gemm_kind(x) for x in names} - {None})
+            prof = kernel_profile(
+                lambda: m.fit_bayes(Xt, yt, **PRECISION_BAYES), warmup=0)
+        kinds = sorted({gemm_kind(x) for x in prof["kernels"]} - {None})
         bayes[leg] = dict(resolved=m.mm_precision, kinds=kinds,
                           launches=launches.read(f"16b fit_bayes ({leg})"))
     say("precision_fit_bayes", **bayes)
@@ -2886,10 +2878,11 @@ def precision_quality_phase(launches, workdir):
 def precision_child(workdir):
     """Phase 16 in a process of its own (``--precision-phase WORKDIR``):
     16a and 16b read the kernels' names from torch.profiler, which late in
-    this script's own process recorded no kernel on an H100 (three whole
-    runs), though in a fresh process it does.  The kernels are already
-    built (phase 2); each path's launch counts go to
-    ``WORKDIR/launches.json`` for the parent to hold."""
+    this script's own process recorded no kernel on an H100, even in a
+    profile padded by ``kernel_profile``, though in a fresh process it
+    does (PERF.md).  The kernels are already built (phase 2); each path's
+    launch counts go to ``WORKDIR/launches.json`` for the parent to
+    hold."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -3101,13 +3094,6 @@ def main():
     chol = cholesky_phase(dev)
 
     ref_phi = plain_fourier_features
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
 
     def counted(phase):
         n = fourier_features_cuda.launches

@@ -6,7 +6,7 @@ of the objective (D=8, lr 0.01, data and params from seed 0) with the Gram
 and Φ·L⁻ᵀ GEMMs in IEEE float32 (``mm_precision=None``), in TF32
 (``mm_precision="default"``) and in bf16 with float32 output
 (``mm_dtype=torch.bfloat16``; ``ops/dispatch.py``).  Steps/s is the median
-of 3 sequences of ``--reps`` runs of ``--steps`` steps, timed by CUDA
+of 3 sequences of REPS runs of ``--steps`` steps, timed by CUDA
 events in turns over the legs, after one run of warm-up; the device ms a
 step is that of one profiled run (torch.profiler).  The cells are the JAX
 package's: 2K = 500 at N = 2048, 8192, 65536 and 2K = 1024 at N = 8192.
@@ -14,7 +14,7 @@ The rule ``auto_mm_dtype`` takes bf16 from N·(2K)² >= 6.8e10; this driver
 records where the card's winner changes and changes no threshold.
 
     python -m scfgp_tpu_torch.experiments.precision_matrix [--steps 50]
-        [--reps 3] [--cells 0,1,2,3] [--cpu] [--out DIR]
+        [--cpu] [--out DIR]
 
 One JSON line a cell; writes ``<out>/precision_matrix.json`` (default
 ``scfgp_tpu_torch/experiments/results/precision/``).  On the card unless
@@ -35,6 +35,8 @@ from .precision_quality import bench_run, device_record, timed_legs
 CELLS = [(2048, 50, 200), (8192, 50, 200), (8192, 112, 400),
          (65536, 50, 200)]
 D = 8
+# Runs of --steps steps in each timed sequence.
+REPS = 3
 LEGS = {"ieee": {}, "tf32": {"mm_precision": "default"},
         "bf16": {"mm_dtype": torch.bfloat16}}
 
@@ -42,9 +44,6 @@ LEGS = {"ieee": {}, "tf32": {"mm_precision": "default"},
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--cells", default=None,
-                    help="comma-separated indices into the cells")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
     ap.add_argument("--out", default=None, help="output directory")
@@ -53,18 +52,16 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("precision_matrix: no CUDA device (use --cpu)")
     clock = "call" if device.type == "cuda" else "host"
-    cells = (CELLS if args.cells is None
-             else [CELLS[int(i)] for i in args.cells.split(",")])
-    out = {**device_record(device), "steps": args.steps, "reps": args.reps,
+    out = {**device_record(device), "steps": args.steps, "reps": REPS,
            "clock": clock, "cells": []}
-    for N, S, M in cells:
+    for N, S, M in CELLS:
         two_k = 2 * (S + M)
         cell = {"n": N, "two_k": two_k, "work": N * two_k ** 2,
                 "auto_bf16": N * two_k ** 2 >= BF16_GEMM_WORK_THRESHOLD}
         legs = timed_legs({leg: bench_run(device, steps=args.steps, N=N,
                                           D=D, S=S, M=M, **kw)
                            for leg, kw in LEGS.items()},
-                          args.steps, iters=args.reps)
+                          args.steps, iters=REPS)
         for leg, r in legs.items():
             cell[leg] = r["steps_per_s"]
             cell[leg + "_device_ms_per_step"] = r["device_ms_per_step"]

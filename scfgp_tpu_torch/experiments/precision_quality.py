@@ -23,15 +23,13 @@ IEEE.  Three parts, same seeds and splits in every leg:
    and MNLP, and NMSE over the surrogate's Bayes floor.
 
     python -m scfgp_tpu_torch.experiments.precision_quality [--trials 5]
-        [--datasets boston,abalone,kin8nm] [--co2-bases raw,ortho]
-        [--skip-speed] [--cpu] [--out DIR]
+        [--co2-bases raw,ortho] [--skip-speed] [--cpu] [--out DIR]
 
 Prints one JSON line a part and writes ``<out>/precision_quality.json``
 (default ``scfgp_tpu_torch/experiments/results/precision/``).
-``--datasets ""`` skips the quality matrix, ``--co2-bases ""`` the co2
-legs.  On the card
-unless ``--cpu``; the record names the device, and on the card its name
-and power limit (nvidia-smi).
+``--co2-bases ""`` skips the co2 legs.  On the card unless ``--cpu``; the
+record names the device, and on the card its name and power limit
+(nvidia-smi).
 """
 
 import argparse
@@ -52,7 +50,7 @@ from ..models.objective import loss_and_grad
 from ..models.params import init_params
 from ..opt.optimizers import make_optimizer, tree_add
 from ..ops.dispatch import matmul_tf32
-from ..utils.profiling import time_fn
+from ..utils.profiling import kernel_profile, time_fn
 from .boston_housing import RESULTS
 from .co2 import ADAMAX, seasonal_trend_basis
 
@@ -84,22 +82,6 @@ def device_record(device) -> dict:
             "nvidia_smi": smi.splitlines()[0]}
 
 
-def device_ms(run):
-    """The card's kernel time of one ``run()`` (torch.profiler: the sum of
-    the CUDA kernels' own time, one stream); None on the CPU."""
-    if not torch.cuda.is_initialized():
-        return None
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3
-
-
 def timed_legs(runs, steps, iters=1, turns=3):
     """``{leg: {"steps_per_s", "device_ms_per_step"}}`` of ``runs`` (each a
     ``run()`` of ``steps`` steps): after one warm-up run each, ``turns``
@@ -116,14 +98,12 @@ def timed_legs(runs, steps, iters=1, turns=3):
             ms = time_fn(runs[leg], iters=iters, warmup=0,
                          clock=clock)["ms_per_call"]
             rates[leg].append(steps * 1e3 / ms)
-    out = {}
-    for leg, run in runs.items():
-        dev = device_ms(run)
-        out[leg] = {"steps_per_s": statistics.median(rates[leg]),
-                    "turns": rates[leg],
-                    "device_ms_per_step": None if dev is None
-                    else dev / steps}
-    return out
+    return {leg: {"steps_per_s": statistics.median(rates[leg]),
+                  "turns": rates[leg],
+                  "device_ms_per_step": (
+                      kernel_profile(run, warmup=0)["device_ms"] / steps
+                      if clock == "call" else None)}
+            for leg, run in runs.items()}
 
 
 def bench_run(device, mm_dtype=None, mm_precision=None, steps=50, N=8192,
@@ -170,12 +150,11 @@ def bench_speed_legs(device) -> dict:
         "global_ieee": bench_run(device, steps=steps, **cell)}, steps)
 
 
-def quality_matrix(trials, device, datasets=tuple(QUALITY)) -> dict:
+def quality_matrix(trials, device) -> dict:
     """Each class's fits under IEEE and TF32, T trials, and the verdict of
     the JAX package's criterion."""
     out = {}
-    for name in datasets:
-        loader, model_kw, fit_kw = QUALITY[name]
+    for name, (loader, model_kw, fit_kw) in QUALITY.items():
         legs = {leg: {"NMSE": [], "MNLP": []} for leg in LEGS}
         for rep in range(trials):
             Xt, yt, Xv, yv, _ = loader(seed=rep)
@@ -242,8 +221,6 @@ def co2_composite_matrix(device, bases=("raw", "ortho")) -> dict:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--trials", type=int, default=5)
-    ap.add_argument("--datasets", default=",".join(QUALITY),
-                    help="comma-separated subset of " + ",".join(QUALITY))
     ap.add_argument("--co2-bases", default="raw,ortho",
                     help="comma-separated subset of raw,ortho; empty skips")
     ap.add_argument("--skip-speed", action="store_true")
@@ -258,13 +235,11 @@ def main(argv=None) -> dict:
     if not args.skip_speed:
         rec["speed_bench_cell"] = bench_speed_legs(device)
         print(json.dumps({"speed": rec["speed_bench_cell"]}), flush=True)
-    datasets = [d for d in args.datasets.split(",") if d]
-    rec["quality"] = quality_matrix(args.trials, device, datasets)
-    if datasets:
-        rec["default_neutral"] = all(q["neutral"]
-                                     for q in rec["quality"].values())
-        print(json.dumps({"default_neutral": rec["default_neutral"]}),
-              flush=True)
+    rec["quality"] = quality_matrix(args.trials, device)
+    rec["default_neutral"] = all(q["neutral"]
+                                 for q in rec["quality"].values())
+    print(json.dumps({"default_neutral": rec["default_neutral"]}),
+          flush=True)
     bases = [b for b in args.co2_bases.split(",") if b]
     rec["co2_composite"] = co2_composite_matrix(device, bases)
     out = args.out or os.path.join(RESULTS, "precision")

@@ -13,6 +13,9 @@ The port of ``scfgp_tpu/utils/profiling.py``:
     TPU's ``block_until_ready`` returned before the work ended
     (``scfgp_tpu/utils/profiling.py:41-52``), and a CUDA event recorded on
     the stream ends when the work before it ends;
+  * ``kernel_profile`` — the CUDA kernels that calls of a function ran, each
+    with its device ms a call (torch.profiler); raises when the profile
+    holds no kernel time;
   * ``debug_numerics()`` — autograd's anomaly mode: a backward that makes a
     NaN raises and names the forward op that made it.  ``jax.disable_jit``
     has no counterpart: PyTorch runs eagerly;
@@ -33,6 +36,9 @@ import torch
 # H100's clocks); doubled until the device is still asleep when the last
 # call is enqueued.
 _SLEEP_CYCLES = 10_000_000
+# Host seconds inside a profile before its first call and after its last
+# (``kernel_profile``).
+_PAD_S = 0.05
 
 
 @contextlib.contextmanager
@@ -127,6 +133,65 @@ def time_fn(fn: Callable, *args, iters: int = 50, warmup: int = 2,
         raise ValueError(f"time_fn: unknown clock {clock!r}")
     return {"calls_per_s": 1e3 / ms if ms > 0 else float("inf"),
             "ms_per_call": ms}
+
+
+def _launch_lag_us(prof):
+    """The least time from a kernel's launch on the host to its start on
+    the card, in µs, over the kernels matched to their launch by CUPTI's
+    correlation id; None when none matches.  A few µs when the card's and
+    the host's clocks agree, else about their offset."""
+    try:
+        events = prof.profiler.kineto_results.events()
+    except (AttributeError, RuntimeError):
+        return None
+    from torch.autograd import DeviceType
+    launches = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() == DeviceType.CPU
+                and "launch" in e.name().lower()}
+    lags = [e.start_ns() - launches[e.correlation_id()] for e in events
+            if e.device_type() == DeviceType.CUDA
+            and e.correlation_id() in launches]
+    return min(lags) / 1e3 if lags else None
+
+
+def kernel_profile(fn: Callable, calls: int = 1, warmup: int = 1) -> dict:
+    """Profile ``calls`` calls of ``fn()`` on the card, after ``warmup``
+    calls outside the profile, with ``_PAD_S`` seconds of host time inside
+    the profile before the first call and after the last, so that kernels
+    stamped a little outside the calls stay inside the profile: late in a
+    long process on an H100 the card's stamps and the host's clock were
+    seen to disagree by -0.44 to +9.2 ms from one profile to the next
+    (``launch_lag_us``).  Returns ``{"out": the last call's output,
+    "kernels": {name: device ms a call}, "device_ms": their sum a call,
+    "wall_ms": host ms a call, "launch_lag_us": see _launch_lag_us}``.  The
+    device ms sum the kernels' own time (one stream, so they do not
+    overlap); a CPU op such as ``aten::mm`` also carries the time of the
+    kernels it launched and is left out.  Raises RuntimeError when the
+    profile holds no kernel time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(_PAD_S)
+        t = time.perf_counter()
+        for _ in range(calls):
+            out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3 / calls
+        time.sleep(_PAD_S)
+    kernels = {e.key: e.self_device_time_total / 1e3 / calls
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0}
+    if not kernels:
+        raise RuntimeError("kernel_profile: torch.profiler recorded no "
+                           "kernel time on the card")
+    return {"out": out, "kernels": kernels,
+            "device_ms": sum(kernels.values()), "wall_ms": wall,
+            "launch_lag_us": _launch_lag_us(prof)}
 
 
 @contextlib.contextmanager

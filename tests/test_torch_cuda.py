@@ -762,9 +762,9 @@ def test_precision_gemms_on_card(cuda_device, setting, B):
     "default" only and a bf16 kernel under bf16; each forward product is
     within its setting's rounding bound of float64 (bf16: of the plain
     upcast product), and the TF32 switch is off after the call."""
-    from chip_smoke import (PRECISION_SETTINGS, U32, U_TF32, cuda_kernels,
-                            gemm_kind)
+    from chip_smoke import PRECISION_SETTINGS, U32, U_TF32, gemm_kind
     from scfgp_tpu_torch.models.objective import _gemm
+    from scfgp_tpu_torch.utils.profiling import kernel_profile
     kw = PRECISION_SETTINGS[setting]
     n, k = 3000, 130
     Phi, Li = _precision_inputs(n, k, B, cuda_device)
@@ -775,8 +775,8 @@ def test_precision_gemms_on_card(cuda_device, setting, B):
         torch.autograd.grad(out[0].sum() + (out[1] ** 2).sum(), (P, L))
         return tuple(t.detach() for t in out)
 
-    step()
-    out, names = cuda_kernels(step)
+    prof = kernel_profile(step)
+    out, names = prof["out"], sorted(prof["kernels"])
     assert torch.backends.cuda.matmul.allow_tf32 is False
     kinds = sorted({gemm_kind(x) for x in names} - {None})
     assert kinds == {"default": ["tf32"], "bf16": ["bf16"]}.get(setting, []), \

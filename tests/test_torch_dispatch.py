@@ -198,6 +198,19 @@ def test_solve_posterior_bf16_jitter_equals_jax(trials):
     assert not torch.allclose(plain.L, got.L)
 
 
+# XLA's CPU dots are IEEE at every precision setting, so JAX's result on
+# the CPU is the same under each (tests/test_dispatch.py:190): one JAX
+# reference a problem, made once, serves every setting of the port.
+
+@functools.lru_cache(maxsize=None)
+def _jax_dense():
+    """JAX's cost and gradient on the problem of
+    ``test_loss_under_each_precision_equals_jax``."""
+    theta, X, y = _problem(seed=5)
+    c, _, g = _jax_loss(theta, X, y, None)
+    return c, g
+
+
 @pytest.mark.parametrize("mm_precision", PRECISIONS)
 def test_loss_under_each_precision_equals_jax(mm_precision):
     """``loss_fn`` and its gradient under every ``mm_precision`` against
@@ -207,20 +220,19 @@ def test_loss_under_each_precision_equals_jax(mm_precision):
     before = torch.backends.cuda.matmul.allow_tf32
     c_t, _, g_t = _port_loss(theta, X, y, None, mm_precision=mm_precision)
     assert torch.backends.cuda.matmul.allow_tf32 == before
-    c_j, _, g_j = _jax_loss(theta, X, y, None, mm_precision=mm_precision)
+    c_j, g_j = _jax_dense()
     np.testing.assert_allclose(c_t, c_j, rtol=1e-10)
     assert max(_leaf_errors(g_t, g_j).values()) <= 1e-8
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_streaming(mm_precision):
-    """JAX's streaming cost and gradient at ``mm_precision`` on the problem
-    of ``test_streaming_under_each_precision_equals_jax``, once a
-    setting."""
+def _jax_streaming():
+    """JAX's streaming cost and gradient on the problem of
+    ``test_streaming_under_each_precision_equals_jax``."""
     theta, X, y = _problem(seed=6, n=110)
     (c, _), g = jax.jit(jax.value_and_grad(
         lambda q: jax_streaming(q, jnp.asarray(X), jnp.asarray(y),
-                                block_size=32, mm_precision=mm_precision),
+                                block_size=32),
         has_aux=True))(_jax_params(theta))
     return float(c), [np.asarray(t) for t in g]
 
@@ -229,13 +241,13 @@ def _jax_streaming(mm_precision):
 @pytest.mark.parametrize("route", ["gemm", "kernel"])
 def test_streaming_under_each_precision_equals_jax(route, mm_precision):
     """``loss_fn_streaming(mm_precision=)`` on both routes against JAX's
-    streaming objective at the same setting, in 4 blocks (one ragged)."""
+    streaming objective, in 4 blocks (one ragged)."""
     theta, X, y = _problem(seed=6, n=110)
     p = params_from_numpy(theta, dtype=torch.float64)
     (c_t, _), g_t = tobj.value_and_grad(
         loss_fn_streaming, p, torch.as_tensor(X), torch.as_tensor(y),
         stats_impl=route, block_size=32, mm_precision=mm_precision)
-    c_j, g_j = _jax_streaming(mm_precision)
+    c_j, g_j = _jax_streaming()
     np.testing.assert_allclose(float(c_t), c_j, rtol=1e-10)
     assert max(_leaf_errors([t.numpy() for t in g_t], g_j).values()) \
         <= 1e-8
@@ -259,6 +271,29 @@ def test_streaming_logposterior_ignores_mm_dtype_as_jax():
     assert abs(float(dense16) - float(lp32)) > 1e-6 * abs(float(lp32))
 
 
+def _sgld_problem():
+    from scfgp_tpu.models.params import pack_params as jax_pack
+    from scfgp_tpu_torch.models.params import reduced_dim
+    _, X, y = _problem(seed=11)
+    P = reduced_dim(D, S, M)
+    q = np.stack([np.asarray(jax_pack(init_params(
+        jax.random.PRNGKey(b), D, S, M, jnp.float64)))[:P]
+        for b in range(2)])
+    return X, y, q
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_sgld(streaming_block):
+    """JAX's full-data SGLD estimator on ``_sgld_problem``."""
+    from scfgp_tpu.bayes import sgld as jsgld
+    X, y, q = _sgld_problem()
+    v, g = jax.jit(jsgld.make_minibatch_value_and_grad(
+        jnp.asarray(X), jnp.asarray(y), D, S, M, batch_size=0,
+        streaming_block=streaming_block))(jnp.asarray(q),
+                                          jax.random.PRNGKey(0))
+    return np.asarray(v), np.asarray(g)
+
+
 @pytest.mark.parametrize("streaming_block", [0, 50])
 @pytest.mark.parametrize("mm_precision", ["default", "highest"])
 def test_sgld_estimator_takes_the_precision_as_jax(mm_precision,
@@ -268,26 +303,16 @@ def test_sgld_estimator_takes_the_precision_as_jax(mm_precision,
     (``scfgp_tpu/bayes/sgld.py:69-103``): on the CPU, IEEE on both sides,
     the JAX values at rtol 1e-9 (the port's residual data-fit form against
     the reference form, equal in float64 to that)."""
-    from scfgp_tpu.bayes import sgld as jsgld
-    from scfgp_tpu.models.params import pack_params as jax_pack
     from scfgp_tpu_torch.bayes import make_minibatch_value_and_grad
-    from scfgp_tpu_torch.models.params import reduced_dim
-    _, X, y = _problem(seed=11)
-    P = reduced_dim(D, S, M)
-    q = np.stack([np.asarray(jax_pack(init_params(
-        jax.random.PRNGKey(b), D, S, M, jnp.float64)))[:P]
-        for b in range(2)])
-    kw = dict(batch_size=0, streaming_block=streaming_block,
-              mm_precision=mm_precision)
-    v_j, g_j = jax.jit(jsgld.make_minibatch_value_and_grad(
-        jnp.asarray(X), jnp.asarray(y), D, S, M, **kw))(
-            jnp.asarray(q), jax.random.PRNGKey(0))
+    X, y, q = _sgld_problem()
+    v_j, g_j = _jax_sgld(streaming_block)
     v, g = make_minibatch_value_and_grad(
-        torch.as_tensor(X), torch.as_tensor(y), D, S, M, **kw)(
+        torch.as_tensor(X), torch.as_tensor(y), D, S, M, batch_size=0,
+        streaming_block=streaming_block, mm_precision=mm_precision)(
             torch.as_tensor(q), None)
-    np.testing.assert_allclose(v.numpy(), np.asarray(v_j), rtol=1e-9)
-    np.testing.assert_allclose(g.numpy(), np.asarray(g_j), rtol=0,
-                               atol=1e-9 * np.abs(np.asarray(g_j)).max())
+    np.testing.assert_allclose(v.numpy(), v_j, rtol=1e-9)
+    np.testing.assert_allclose(g.numpy(), g_j, rtol=0,
+                               atol=1e-9 * np.abs(g_j).max())
 
 
 def test_gemms_run_tf32_only_under_default_and_restore_the_switch():
