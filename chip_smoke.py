@@ -114,8 +114,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    and K1b, kernel path against the plain map; 14d the dynamic NUTS (30 +
    30) and the host-looped NUTS and HMC (2 transitions each) at kin8nm
    width, 8 chains, max_depth 6: accept rate, depths, divergences and K1b
-   launches against 2^d a transition; 14e experiments/bench_hmc.py at 10 +
-   10; 14f experiments/bayes_predictive.py --tiny on co2, seed 0, every
+   launches against 2^d a transition; 14e experiments/bench_hmc.py at 5 +
+   5; 14f experiments/bayes_predictive.py --tiny on co2, seed 0, every
    arm: each finite Bayes arm's recalibrated MNLP below its raw one;
 15. the parallel layer (``parallel/``), all in turn: 15a ``fit_fast(mesh=
    make_mesh())`` in a world of one rank over NCCL in this process,
@@ -134,7 +134,17 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    fit_fast_batch, at phase 6's bounds; 15c
    experiments/synthetic_scaling.py at 1 and 2 ranks (two ranks share the
    card: steps/s, no scaling result), each rank's six counts held as
-   every other path's;
+   every other path's; 15d chain-parallel sampling on 15b's two ranks, 4
+   of 8 chains a rank: the dry run's chain-sharded HMC, HMC fleet, NUTS
+   fleet and SGLD at its tiny shapes (``graft_entry.chain_parts``), then
+   those four samplers at phase 12's width (dimension 1163, 6553 rows) at
+   10 + 10 transitions, each gathered and held bitwise against the same
+   sampler run unsharded in this process on the same seeded draws (while
+   the ranks run 15b), its log density taken in blocks of a rank's
+   chains (every accept decision equal), one K1f and one K1b launch a
+   batched gradient on each rank; K1f and K1b against the plain map at
+   the shapes only 15d gives them (a rank's chains on the 6553 rows, and
+   on a pSGLD minibatch), on every rank; 60 s, checked;
 16. the precision policy (``ops/dispatch.py``), all in turn: 16a the
    objective's Gram and Φ·L⁻ᵀ GEMMs with their backward GEMMs at the
    kin8nm, bench and streaming-block shapes, 2-D and with 4 trials, under
@@ -440,12 +450,13 @@ DYNAMIC_NUTS = dict(num_warmup=30, num_samples=30, max_depth=6,
 HOST_NUTS = dict(DYNAMIC_NUTS, num_warmup=0, num_samples=2)
 HOST_HMC = dict(num_warmup=0, num_samples=2, num_integration_steps=16,
                 init_step_size=0.003)
-# 14e, experiments/bench_hmc.py at 10 + 10; 14f, experiments/
+# 14e, experiments/bench_hmc.py at 5 + 5; 14f, experiments/
 # bayes_predictive.py --tiny on co2, seed 0, every arm.  Both are cut from
 # 30 + 30 and --quick to keep the whole run well inside its time limit on
-# a slow host (a run with them took 1092 s of 1200); the campaign's full
-# budgets run apart from this script.
-BENCH_HMC_ARGS = ["--warmup", "10", "--samples", "10"]
+# a slow host (a run with them took 1092 s of 1200), and 14e again from 10
+# + 10 when 15d came (a run took 1359 s on a slower host); the full budgets
+# run apart from this script.
+BENCH_HMC_ARGS = ["--warmup", "5", "--samples", "5"]
 CAMPAIGN_ARGS = ["--tiny", "--datasets", "co2", "--seeds", "1"]
 
 
@@ -916,6 +927,23 @@ class Launches:
 
     def of(self, name):
         return {p: c[name] for p, c in self.by_path.items()}
+
+
+def kernel_launches():
+    """A ``Launches`` of the six kernels' wrappers (each counts its own
+    launches)."""
+    from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
+                                              cholesky_inverse_cuda)
+    from scfgp_tpu_torch.ops.gram import (sufficient_stats_bwd_cuda,
+                                          sufficient_stats_cuda)
+    from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
+                                         fourier_features_cuda)
+    return Launches(phi_fwd=fourier_features_cuda,
+                    phi_bwd=fourier_features_bwd_cuda,
+                    gram_fwd=sufficient_stats_cuda,
+                    gram_bwd=sufficient_stats_bwd_cuda,
+                    cholesky=cholesky_cuda,
+                    cholesky_inverse=cholesky_inverse_cuda)
 
 
 def params_equal(a, b):
@@ -2175,11 +2203,35 @@ def cli_serving_phase(launches):
 # multi-host width (streaming, 5e5 rows a rank, both routes), boston
 # (fit_fast_batch(mesh) of PARALLEL_BATCH trials) and the streaming width
 # on a (1, 2) mesh (TP, S+M = 256, one block of rows); 15c the scaling
-# driver at 1 and 2 ranks.  Budget: ~90 s.
+# driver at 1 and 2 ranks; 15d chain-parallel sampling in 15b's spawn.
+# Budget: ~90 s, and 60 s for 15d.
 PARALLEL_RANKS = 2
 PARALLEL_BATCH = 3
 TP_MESH = (1, 2)
 SCALING_ARGS = ["--ranks", "1", "2"]
+# 15d: chain-parallel sampling on 15b's PARALLEL_RANKS ranks, each holding
+# CHAIN_SHARDED / PARALLEL_RANKS of the chains: the dry run's four
+# chain-sharded parts at its tiny shapes (graft_entry.chain_parts), then
+# four samplers at phase 12's width (S=20, M=50, D=8: dimension 1163; the
+# 6553 rows of the seed-0 split) at cut budgets, each held against the
+# same sampler run unsharded in this process on the same seeded draws,
+# its log density taken in blocks of a rank's chains: (sampler, budget,
+# seed).  Budget: CHAIN_BUDGET_S, checked on the references' wall time
+# plus a rank's (``chain_report``).
+CHAIN_SHARDED = 8
+CHAIN_BUDGET_S = 60
+CHAIN_RUNS = {
+    "hmc": ("hmc", dict(num_warmup=10, num_samples=10,
+                        num_integration_steps=8, init_step_size=0.003), 2),
+    "hmc_fleet": ("hmc", dict(num_warmup=10, num_samples=10,
+                              num_integration_steps=8, init_step_size=0.003,
+                              shared_adaptation=False), 3),
+    "nuts_fleet": ("nuts_static", dict(num_warmup=10, num_samples=10,
+                                       depth=3, init_step_size=0.003,
+                                       shared_adaptation=False), 4),
+    "sgld": ("sgld", dict(num_warmup=10, num_samples=10, step_size=1e-5), 5),
+}
+CHAIN_SGLD_BATCH = 512
 
 
 def parallel_world1_phase(launches, data):
@@ -2270,12 +2322,6 @@ def parallel_rank_checks(cfg):
     from scfgp_tpu_torch.models.model import fit_fast_batch
     from scfgp_tpu_torch.models.objective import loss_and_grad
     from scfgp_tpu_torch.models.params import SCFGPParams, init_params
-    from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
-                                              cholesky_inverse_cuda)
-    from scfgp_tpu_torch.ops.gram import (sufficient_stats_bwd_cuda,
-                                          sufficient_stats_cuda)
-    from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
-                                         fourier_features_cuda)
     from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
     from scfgp_tpu_torch.parallel import (make_mesh, make_mesh2d,
                                           shard_rows, tp_loss_and_grad)
@@ -2283,12 +2329,7 @@ def parallel_rank_checks(cfg):
     dev = torch.device(cfg["device"])
     rank, W = dist.get_rank(), dist.get_world_size()
     need = ("phi_fwd", "phi_bwd") if cfg["need_kernels"] else ()
-    launches = Launches(phi_fwd=fourier_features_cuda,
-                        phi_bwd=fourier_features_bwd_cuda,
-                        gram_fwd=sufficient_stats_cuda,
-                        gram_bwd=sufficient_stats_bwd_cuda,
-                        cholesky=cholesky_cuda,
-                        cholesky_inverse=cholesky_inverse_cuda)
+    launches = kernel_launches()
     mesh = make_mesh()
     data = mesh.group("data")
     out = {"rank": rank, "world": W, "backend": dist.get_backend()}
@@ -2447,16 +2488,26 @@ def parallel_rank_checks(cfg):
             NMSE=[b.evals["NMSE"][1][-1] for b in sharded])
     times["batch"] = time.perf_counter() - t
     out["seconds"] = times
+    if "chains" in cfg:  # 15d's ranks, in this spawn
+        out["chains"] = chain_rank_checks(cfg["chains"])
     return out
 
 
 def parallel_ranks_phase(launches, plain_fit):
     """15b: ``parallel_rank_checks`` on PARALLEL_RANKS ranks sharing the
     card over gloo, each check held to its phase's bound, every rank's
-    digests equal, every rank's launch counts recorded."""
+    digests equal, every rank's launch counts recorded.  The same ranks
+    then run 15d's (``chain_rank_checks``), whose references this process
+    computes meanwhile (``chain_references``)."""
     from scfgp_tpu_torch.parallel import launch
+    cfg = parallel_config()
+    cfg["chains"], data, q0 = chain_setup()
     t = time.perf_counter()
-    res = launch.run(parallel_rank_checks, PARALLEL_RANKS, parallel_config())
+    with ThreadPoolExecutor(1) as pool:
+        spawn = pool.submit(launch.run, parallel_rank_checks, PARALLEL_RANKS,
+                            cfg)
+        ref = chain_references(launches, data, q0)
+        res = spawn.result()
     seconds = time.perf_counter() - t
     r0 = res[0]
     for r in res:
@@ -2502,6 +2553,7 @@ def parallel_ranks_phase(launches, plain_fit):
     check(all(r0["batch"]["bitwise"]),
           f"15b: fit_fast_batch(mesh) differs from unsharded: "
           f"{r0['batch']['bitwise']}")
+    chain_report(launches, [r["chains"] for r in res], *ref)
 
 
 def parallel_scaling_phase(launches, workdir):
@@ -2518,8 +2570,303 @@ def parallel_scaling_phase(launches, workdir):
           f"15c: a point's ranks disagree: {rep['points']}")
 
 
+def chain_gradients(name):
+    """The batched gradients of a run of CHAIN_RUNS: L + 1 an HMC
+    transition, 2^depth a static NUTS one, one an SGLD step."""
+    kind, kw, _ = CHAIN_RUNS[name]
+    steps = kw["num_warmup"] + kw["num_samples"] * kw.get("thin", 1)
+    if kind == "hmc":
+        return steps * (kw["num_integration_steps"] + 1)
+    if kind == "nuts_static":
+        return steps * (1 << kw["depth"])
+    return steps
+
+
+def in_blocks(fn, block):
+    """``fn`` of (C, P) positions (and any further arguments) taken
+    ``block`` chains a call and concatenated: a log density, or an SGLD
+    estimator's (values, gradients), keeping its ``n`` and
+    ``batch_size``."""
+    def blocked(q, *rest):
+        outs = [fn(q[i:i + block], *rest) for i in range(0, q.shape[0],
+                                                         block)]
+        if isinstance(outs[0], tuple):
+            return tuple(torch.cat(parts) for parts in zip(*outs))
+        return torch.cat(outs)
+    for attr in ("n", "batch_size"):
+        if hasattr(fn, attr):
+            setattr(blocked, attr, getattr(fn, attr))
+    return blocked
+
+
+def chain_sample(name, data, q, gen, axis_name=None, block=None):
+    """The run ``name`` of CHAIN_RUNS from positions ``q`` and the draws of
+    ``gen``: chains sharded over ``axis_name``'s ranks where it is given;
+    the log density (or estimator) taken ``block`` chains a call where
+    that is given."""
+    from scfgp_tpu_torch.bayes import (hmc_sample, make_logposterior,
+                                       make_minibatch_value_and_grad,
+                                       nuts_sample_static, sgld_sample)
+    kind, kw, _ = CHAIN_RUNS[name]
+    X, y, (D, S, M) = data
+    if kind == "sgld":
+        target = make_minibatch_value_and_grad(X, y, D, S, M,
+                                               CHAIN_SGLD_BATCH)
+    else:
+        target = make_logposterior(X, y, D, S, M)
+    if block:
+        target = in_blocks(target, block)
+    fn = {"hmc": hmc_sample, "nuts_static": nuts_sample_static,
+          "sgld": sgld_sample}[kind]
+    return fn(target, q, gen, axis_name=axis_name, **kw)
+
+
+CHAIN_FIELDS = ("samples", "logdensities", "final_positions", "step_size",
+                "inv_mass", "precond", "accept_rate", "divergences",
+                "nonfinite")
+
+
+def chain_fields(res):
+    return {f: getattr(res, f).detach().cpu().numpy() for f in CHAIN_FIELDS
+            if getattr(res, f, None) is not None}
+
+
+def chain_rank_checks(cfg):
+    """15d, one rank: the dry run's chain-sharded parts at its tiny shapes
+    (``graft_entry.chain_parts``), then each run of CHAIN_RUNS on this
+    rank's block of the chains, its launch counts set to 0 just before and
+    read just after, gathered over the ranks.  Returns the counts, wall
+    seconds and, on rank 0, the gathered fields; on every rank their
+    digests.  ``cfg["device"]`` "cpu" rehearses it (the plain versions)."""
+    import torch.distributed as dist
+    from scfgp_tpu_torch.graft_entry import chain_parts, tiny_problem
+    from scfgp_tpu_torch.parallel import (gather_chains, make_mesh,
+                                          shard_chains)
+
+    rank, W = dist.get_rank(), dist.get_world_size()
+    dev = cfg["device"]
+    need = ("phi_fwd", "phi_bwd") if dev == "cuda" else ()
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    launches = kernel_launches()
+    out = {"rank": rank, "backend": dist.get_backend(), "seconds": {}}
+    mesh = make_mesh()
+    t = time.perf_counter()
+    launches.start()
+    X, y, dims = tiny_problem(W)
+    out["dryrun"] = chain_parts(mesh, X, y, *dims, dev)
+    sync()
+    out["dryrun_launches"] = launches.read("15d dry run's chain parts",
+                                           need=need, none=BAYES_NONE)
+    out["seconds"]["dryrun"] = time.perf_counter() - t
+    X, y = (torch.as_tensor(a, device=dev) for a in cfg["data"][:2])
+    data = (X, y, cfg["data"][2])
+    q = shard_chains(mesh, cfg["q0"], device=dev)
+    for name in CHAIN_RUNS:
+        gen = torch.Generator(device=dev).manual_seed(CHAIN_RUNS[name][2])
+        sync()
+        launches.start()
+        t = time.perf_counter()
+        res = chain_sample(name, data, q, gen, mesh.group("data"))
+        sync()
+        wall = time.perf_counter() - t
+        counts = launches.read(f"15d {name}", need=need, none=BAYES_NONE)
+        fields = chain_fields(gather_chains(mesh, res))
+        out[name] = dict(launches=counts, wall_s=wall,
+                         chains=int(q.shape[0]),
+                         digest=digest([torch.as_tensor(v) for v in
+                                        fields.values()]))
+        if rank == 0:
+            out[name]["fields"] = fields
+        out["seconds"][name] = wall
+    t = time.perf_counter()
+    out["vs_plain"] = chain_vs_plain(data, q)
+    out["seconds"]["vs_plain"] = time.perf_counter() - t
+    return out
+
+
+def chain_vs_plain(data, q):
+    """15d's kernels against the plain map at the shapes only 15d gives
+    them: one batched value and gradient of a rank's chains ``q`` on all
+    the rows, and one pSGLD minibatch estimate of them (CHAIN_SGLD_BATCH
+    rows, the same draw on every rank), each with ``chain_errors`` and
+    whether every value is finite.  Its launches come after the runs'
+    counts were read, so they count in none."""
+    from scfgp_tpu_torch.bayes import (batched_value_and_grad,
+                                       make_logposterior,
+                                       make_minibatch_value_and_grad)
+    X, y, (D, S, M) = data
+    gen = torch.Generator(device=X.device).manual_seed(SEED)
+    rows = torch.randint(X.shape[0], (CHAIN_SGLD_BATCH,), generator=gen,
+                         device=X.device)
+    calls = {
+        "logposterior": (batched_value_and_grad(
+            make_logposterior(X, y, D, S, M)), ()),
+        "minibatch": (make_minibatch_value_and_grad(
+            X, y, D, S, M, CHAIN_SGLD_BATCH), (rows,))}
+    out = {}
+    for what, (fn, rest) in calls.items():
+        ld, g = fn(q, *rest)
+        with plain_feature_map():
+            ld_p, g_p = fn(q, *rest)
+        e = chain_errors(ld, g, ld_p, g_p, D, S)
+        out[what] = dict(
+            chains=int(q.shape[0]),
+            rows=int(rest[0].numel() if rest else X.shape[0]),
+            finite=bool(torch.isfinite(ld).all() and torch.isfinite(g).all()),
+            ld_rel_err=e[0], grad_rel_err=e[1])
+    return out
+
+
+def moved(samples):
+    """Per chain and sampling transition after the first, whether the
+    chain moved: an accepted proposal (a rejected one keeps the position
+    bitwise)."""
+    return np.any(samples[1:] != samples[:-1], axis=-1)
+
+
+# 15d holds each sharded run bitwise against its unsharded reference: each
+# reduction over the chains is taken on the chains gathered from the ranks
+# by the unsharded sampler's own operation, each rank draws the unsharded
+# draws and keeps its slice, and the reference takes its log density in
+# blocks of a rank's chains, so every chain meets the same operations on
+# the same bits.  Against one batch of all 8 chains the float32 batched
+# log density rounds otherwise (cuBLAS picks its sums by batch size), and
+# the trajectories carry that apart to an accept decision that flips
+# (PERF.md, the findings on chain-parallel sampling).
+COUNT_FIELDS = ("divergences", "nonfinite")
+
+
+def chain_rows(res, ref):
+    """15d's comparison of the ranks' results ``res`` with the unsharded
+    fields ``ref``: by run, each field's largest error relative to its
+    largest entry, the counts' equality, the flipped accept decisions
+    (transition, counted from 0 with the warmup; chain), bitwise equality,
+    and the ranks' agreement."""
+    rows = {}
+    for name in CHAIN_RUNS:
+        got, want = res[0][name]["fields"], ref[name]
+        kind, kw, _ = CHAIN_RUNS[name]
+        flips = []
+        if kind != "sgld":
+            flips = [(kw["num_warmup"] + 1 + int(i), int(c))
+                     for i, c in np.argwhere(moved(got["samples"])
+                                             != moved(want["samples"]))]
+        rows[name] = dict(
+            rel_err={f: float(np.max(np.abs(got[f].astype(np.float64)
+                                            - want[f]))
+                              / max(float(np.max(np.abs(want[f]))), 1e-30))
+                     for f in want if f not in COUNT_FIELDS},
+            counts_equal={f: int(got[f]) == int(want[f])
+                          for f in COUNT_FIELDS if f in want},
+            accept_flips=flips,
+            bitwise={f: bool(np.array_equal(got[f], want[f]))
+                     for f in want},
+            digests_equal=len({r[name]["digest"] for r in res}) == 1)
+    return rows
+
+
+def chain_setup():
+    """15d's inputs: the ranks' config, the data ``(X, y, (D, S, M))`` on
+    the card (phase 12's model on the seed-0 kin8nm split) and the
+    CHAIN_SHARDED initial positions."""
+    from scfgp_tpu_torch import SCFGP
+    from scfgp_tpu_torch.data.datasets import load_kin8nm
+    Xt, yt, _, _, _ = load_kin8nm(prop=0.8, seed=0)
+    m = SCFGP(**BAYES_MODEL, seed=SEED, device="cuda")
+    m.set_data(Xt, yt)
+    data = (m.X, m.y, (m.D, m.S, m.M))
+    q0 = random_chains(m, CHAIN_SHARDED, SEED + 3)
+    cfg = dict(device="cuda",
+               data=(m.X.cpu().numpy(), m.y.cpu().numpy(), data[2]),
+               q0=q0.cpu().numpy())
+    return cfg, data, q0
+
+
+def chain_references(launches, data, q0):
+    """15d's references: each run of CHAIN_RUNS unsharded in this process
+    from the same seeded draws, its log density taken in blocks of a
+    rank's chains (one K1f and one K1b a block's gradient).  Returns the
+    fields and the wall seconds by run."""
+    block = CHAIN_SHARDED // PARALLEL_RANKS
+    ref, ref_wall = {}, {}
+    for name in CHAIN_RUNS:
+        gen = torch.Generator(device="cuda").manual_seed(CHAIN_RUNS[name][2])
+        torch.cuda.synchronize()
+        launches.start()
+        t = time.perf_counter()
+        ref[name] = chain_fields(chain_sample(name, data, q0, gen,
+                                              block=block))
+        torch.cuda.synchronize()
+        ref_wall[name] = time.perf_counter() - t
+        counts = launches.read(f"15d {name}, unsharded", none=BAYES_NONE)
+        n = chain_gradients(name) * PARALLEL_RANKS
+        check(counts["phi_fwd"] == n and counts["phi_bwd"] == n,
+              f"15d {name} unsharded: {n} blocks' gradients, launches "
+              f"{counts}")
+    return ref, ref_wall
+
+
+def chain_report(launches, res, ref, ref_wall):
+    """15d's checks of the ranks' results ``res`` against the references:
+    every field bitwise (each field's largest error relative to its
+    largest entry printed), every accept decision equal (a flip is printed
+    with its transition and chain), every rank's gathered fields the same;
+    one K1f and one K1b launch a batched gradient on each rank, no K2 or
+    Cholesky kernel."""
+    rows = chain_rows(res, ref)
+    for name, row in rows.items():
+        grads = chain_gradients(name)
+        for r in res:
+            counts = r[name]["launches"]
+            launches.record(f"15d {name} (rank {r['rank']})", counts,
+                            none=BAYES_NONE)
+            check(counts["phi_fwd"] == grads and counts["phi_bwd"] == grads,
+                  f"15d {name} rank {r['rank']}: {grads} gradients of "
+                  f"{r[name]['chains']} chains, launches {counts}")
+        kw = CHAIN_RUNS[name][1]
+        row.update(gradients=grads, wall_s=[r[name]["wall_s"] for r in res],
+                   transitions_per_s=(kw["num_warmup"] + kw["num_samples"])
+                   / max(r[name]["wall_s"] for r in res),
+                   accept_rate=float(ref[name].get("accept_rate", np.nan)),
+                   launches=[r[name]["launches"] for r in res])
+    for r in res:
+        launches.record(f"15d dry run's chain parts (rank {r['rank']})",
+                        r["dryrun_launches"], none=BAYES_NONE)
+    plain = {f"{what} (rank {r['rank']})": row for r in res
+             for what, row in r["vs_plain"].items()}
+    # The references run beside 15b's ranks and the ranks' 15d after
+    # their 15b: the sum is the most 15d can add to the smoke.
+    seconds = sum(ref_wall.values()) + max(sum(r["seconds"].values())
+                                           for r in res)
+    say("parallel_chains", ranks=PARALLEL_RANKS, chains=CHAIN_SHARDED,
+        backend=res[0]["backend"], runs=rows, dryrun=res[0]["dryrun"],
+        vs_plain=plain, tol=dict(cost=COST_TOL, grad=GRAD_TOL),
+        rank_seconds=[r["seconds"] for r in res],
+        reference_seconds=ref_wall, seconds=seconds,
+        budget_s=CHAIN_BUDGET_S)
+    for what, row in plain.items():
+        check(row["finite"] and row["ld_rel_err"] <= COST_TOL
+              and max(row["grad_rel_err"].values()) <= GRAD_TOL,
+              f"15d {what}: not finite, or kernel and plain differ: {row}")
+    check(seconds <= CHAIN_BUDGET_S,
+          f"15d took {seconds:.1f} s of its {CHAIN_BUDGET_S} s")
+    check(len({json.dumps(r["dryrun"], sort_keys=True) for r in res}) == 1,
+          "15d: the ranks' dry runs differ")
+    for name, row in rows.items():
+        check(not row["accept_flips"], f"15d {name}: accept decisions "
+              f"flipped at (transition, chain) {row['accept_flips']}")
+        check(all(row["counts_equal"].values()) and row["digests_equal"],
+              f"15d {name}: counts or ranks differ: {row}")
+        check(all(row["bitwise"].values()), f"15d {name}: sharded and "
+              f"unsharded differ: {row['bitwise']}, {row['rel_err']}")
+
+
 def parallel_phase(launches, workdir):
-    """Phase 15, 15a-15c in turn."""
+    """Phase 15, 15a-15c in turn (15b's spawn runs 15d's ranks too)."""
     from scfgp_tpu_torch.data.datasets import load_kin8nm
     Xt, yt, Xv, yv, _ = load_kin8nm(prop=0.8, seed=0)
     t = time.perf_counter()
@@ -2887,18 +3234,7 @@ def precision_child(workdir):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
-                                              cholesky_inverse_cuda)
-    from scfgp_tpu_torch.ops.gram import (sufficient_stats_bwd_cuda,
-                                          sufficient_stats_cuda)
-    from scfgp_tpu_torch.ops.phi import (fourier_features_bwd_cuda,
-                                         fourier_features_cuda)
-    launches = Launches(phi_fwd=fourier_features_cuda,
-                        phi_bwd=fourier_features_bwd_cuda,
-                        gram_fwd=sufficient_stats_cuda,
-                        gram_bwd=sufficient_stats_bwd_cuda,
-                        cholesky=cholesky_cuda,
-                        cholesky_inverse=cholesky_inverse_cuda)
+    launches = kernel_launches()
     precision_phase(launches, torch.device("cuda"), workdir)
     with open(os.path.join(workdir, "launches.json"), "w") as f:
         json.dump(launches.by_path, f)
@@ -2945,9 +3281,7 @@ def main():
         predict_from_phi, softplus, solve_posterior, sufficient_stats)
     from scfgp_tpu_torch.models.params import init_params
     from scfgp_tpu_torch.ops import build
-    from scfgp_tpu_torch.ops.cholesky import (cholesky_cuda,
-                                              cholesky_inverse_cuda,
-                                              cholesky_inverse_kernel)
+    from scfgp_tpu_torch.ops.cholesky import cholesky_inverse_kernel
     from scfgp_tpu_torch.ops.gram import (gram_bwd_ref,
                                           sufficient_stats_bwd_cuda,
                                           sufficient_stats_cuda,
@@ -3101,12 +3435,7 @@ def main():
         counted.last = n
         return n
 
-    launches = Launches(phi_fwd=fourier_features_cuda,
-                        phi_bwd=fourier_features_bwd_cuda,
-                        gram_fwd=sufficient_stats_cuda,
-                        gram_bwd=sufficient_stats_bwd_cuda,
-                        cholesky=cholesky_cuda,
-                        cholesky_inverse=cholesky_inverse_cuda)
+    launches = kernel_launches()
 
     def check_post(post, ref, what):
         errs = {f: rel_err(getattr(post, f), getattr(ref, f))

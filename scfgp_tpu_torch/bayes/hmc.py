@@ -20,6 +20,23 @@ source (a ``torch.Generator`` on the chains' device): the standard-normal
 momentum (C, P) and the uniforms (C,) of the accept test, in that order
 each step.  The two packages' generators differ, so a test passes JAX's
 draws in through a source of its own and gets JAX's chains.
+
+Chains sharded over ranks (``axis_name``, a group of an explicit mesh, as
+``loss_fn`` takes it; ``parallel/chains.py::shard_chains`` gives each rank
+its contiguous block of the C chains, the layout of JAX's
+``NamedSharding(mesh, P("data", None))`` on the positions): every quantity
+the unsharded sampler reduces over all C chains is taken on the chains of
+every rank, gathered in rank order (``all_chains``), by the unsharded
+sampler's own operation, so it is the same on every rank: in shared mode
+the mean acceptance of the dual averaging and the Welford batch of all
+chains' draws; in both modes the reported ``accept_rate``, and
+``divergences`` summed over the ranks.  The draws come through
+``ChainSlice``: each rank draws what the unsharded run draws and keeps its
+chains' slice; and a chain's energy is summed by ``row_sum``, which does
+not depend on the batch's chain count.  So a sharded run is bitwise the
+unsharded run whose log density is evaluated in blocks of each rank's
+chains (a batched float32 log density may round otherwise for another
+batch size).
 """
 
 from __future__ import annotations
@@ -28,7 +45,9 @@ import math
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from ..ops.collectives import all_reduce_sum, gather_rows, resolve_group
 from .predictive import batched_value_and_grad
 
 # A transition is divergent when the energy error exceeds this (Stan's
@@ -59,15 +78,67 @@ class Draws:
                              device=self.device)
 
 
-def as_draws(rng, like: torch.Tensor):
+class ChainSlice:
+    """This rank's slice of the draws of ``draws``, a source that every
+    rank of ``axis_name`` holds alike (the same seed, or the same replayed
+    draws): each request for this rank's block of chains draws the whole
+    C-chain array from ``draws`` and keeps the block, so the ranks together
+    use exactly the draws of the unsharded run.
+
+    The chain axis of a request is the second to last of a normal draw
+    ((C, P) momenta and noise, (T, C, P) rungs), the last of a uniform or
+    Bernoulli draw ((C,), and NUTS's leaf uniforms (2^j, C)); an integer
+    draw (SGLD's minibatch rows) has none and is passed through whole.
+    This rank's block is block ``dist.get_rank(group)`` of
+    ``dist.get_world_size(group)`` equal blocks, as ``shard_chains`` cuts
+    the positions."""
+
+    def __init__(self, draws, axis_name):
+        group = resolve_group(axis_name)
+        self.draws = draws
+        self.index = dist.get_rank(group)
+        self.count = dist.get_world_size(group)
+
+    def _slice(self, draw, shape, axis):
+        shape = list(shape)
+        per = shape[axis]
+        shape[axis] = per * self.count
+        return draw(tuple(shape)).narrow(axis, self.index * per,
+                                         per).contiguous()
+
+    def normal(self, shape):
+        return self._slice(self.draws.normal, shape, len(shape) - 2)
+
+    def uniform(self, shape):
+        return self._slice(self.draws.uniform, shape, len(shape) - 1)
+
+    def bernoulli(self, shape):
+        return self._slice(self.draws.bernoulli, shape, len(shape) - 1)
+
+    def randint(self, high: int, shape):
+        return self.draws.randint(high, shape)
+
+
+def as_draws(rng, like: torch.Tensor, axis_name=None):
     """``rng`` as a draw source for tensors like ``like``: a
     ``torch.Generator``, an int seed (a generator on ``like``'s device), or
-    a source with ``Draws``'s methods, returned as it is."""
+    a source with ``Draws``'s methods, returned as it is.  With
+    ``axis_name`` (chains sharded over its ranks) the source is wrapped in
+    ``ChainSlice``, unless it is one already."""
     if isinstance(rng, int):
         rng = torch.Generator(device=like.device).manual_seed(rng)
     if isinstance(rng, torch.Generator):
-        return Draws(rng, like.dtype, like.device)
+        rng = Draws(rng, like.dtype, like.device)
+    if axis_name is not None and not isinstance(rng, ChainSlice):
+        rng = ChainSlice(rng, axis_name)
     return rng
+
+
+def all_chains(x: torch.Tensor, axis_name=None, dim: int = 0):
+    """``x`` of every rank's chains, concatenated along the chain dimension
+    ``dim`` in rank order: the unsharded tensor, the same on every rank;
+    ``x`` itself without ``axis_name``."""
+    return x if axis_name is None else gather_rows(x, axis_name, dim)
 
 
 class DualAveragingState(NamedTuple):
@@ -174,8 +245,19 @@ def leapfrog(value_and_grad: Callable, position, momentum, eps, inv_mass,
     return q, p, ld
 
 
+def row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Each chain's sum over the last dimension, taken in float64 and
+    rounded back to ``x``'s dtype.  On the card a float32 sum of a row
+    splits its terms by how many rows the batch holds, so another chain
+    count would round a chain's energy otherwise; the float64 sum rounds
+    to the same float32 value whatever its order but for a sum within
+    ~1e-13 of a float32 rounding boundary, so a chain-sharded run keeps
+    the unsharded run's bits.  A float64 ``x`` is summed as before."""
+    return torch.sum(x, dim=-1, dtype=torch.float64).to(x.dtype)
+
+
 def _kinetic(p, im):
-    return 0.5 * torch.sum(p * p * im, dim=-1)
+    return 0.5 * row_sum(p * p * im)
 
 
 def metropolis(q, q1, ld0, ld1, h0, h1, u):
@@ -228,7 +310,7 @@ class HMCResult(NamedTuple):
 def adaptive_sample(transition: Callable, init_positions, num_warmup: int,
                     num_samples: int, init_step_size: float,
                     target_accept: float, adapted=None, warmup_state=None,
-                    shared_adaptation: bool = True):
+                    shared_adaptation: bool = True, axis_name=None):
     """The warmup and sampling loops HMC and static NUTS share
     (``scfgp_tpu/bayes/hmc.py:311-370``, ``nuts.py:513-568``).
 
@@ -238,6 +320,11 @@ def adaptive_sample(transition: Callable, init_positions, num_warmup: int,
     from the chains' mean acceptance and all their draws, or per chain.
     ``adapted=(step_size, inv_mass)`` skips warmup and samples from
     ``init_positions``; ``warmup_state=(da, wf)`` continues a warmup.
+    With ``axis_name``, ``init_positions`` is this rank's block of the
+    chains: the shared adaptation, ``accept_rate`` and ``divergences`` are
+    over every rank's chains and the same on every rank (module
+    docstring); per-chain values (draws, a fleet's step sizes and masses,
+    ``adapted`` and ``warmup_state`` in fleet mode) are this rank's block.
     Returns ``(samples, lds, accept_rate, divergences, q, eps, inv_mass,
     warmup_state)``."""
     C, P = init_positions.shape
@@ -260,8 +347,9 @@ def adaptive_sample(transition: Callable, init_positions, num_warmup: int,
             q, _, acc, _ = transition(q, torch.exp(da.log_eps),
                                       welford_variance(wf))
             if shared_adaptation:
-                da = da_update(da, torch.mean(acc), target=target_accept)
-                wf = welford_add_batch(wf, q)
+                da = da_update(da, torch.mean(all_chains(acc, axis_name)),
+                               target=target_accept)
+                wf = welford_add_batch(wf, all_chains(q, axis_name))
             else:
                 da = da_update(da, acc, target=target_accept)
                 wf = welford_add_batch(wf, q[:, None, :])
@@ -274,8 +362,11 @@ def adaptive_sample(transition: Callable, init_positions, num_warmup: int,
     divs = torch.zeros((), dtype=torch.int64, device=device)
     for i in range(num_samples):
         q, ld, acc, div = transition(q, eps, inv_mass)
-        samples[i], lds[i], accs[i] = q, ld, torch.mean(acc)
+        samples[i], lds[i] = q, ld
+        accs[i] = torch.mean(all_chains(acc, axis_name))
         divs = divs + div.sum()
+    if axis_name is not None:
+        (divs,) = all_reduce_sum([divs], axis_name)
     return (samples, lds, torch.mean(accs), divs, q, eps, inv_mass,
             out_warmup_state)
 
@@ -284,7 +375,7 @@ def hmc_sample(logdensity_fn: Callable, init_positions: torch.Tensor, rng,
                num_warmup: int = 500, num_samples: int = 500,
                num_integration_steps: int = 16, init_step_size: float = 0.01,
                target_accept: float = 0.8, adapted=None, warmup_state=None,
-               shared_adaptation: bool = True) -> HMCResult:
+               shared_adaptation: bool = True, axis_name=None) -> HMCResult:
     """Run C chains of HMC with warmup adaptation
     (``scfgp_tpu/bayes/hmc.py:250-370``).
 
@@ -295,8 +386,11 @@ def hmc_sample(logdensity_fn: Callable, init_positions: torch.Tensor, rng,
     gradients, L = ``num_integration_steps``.  ``shared_adaptation=False``
     adapts a step size (C,) and an inverse mass (C, P) per chain, the fleet
     mode for many random-init chains whose basins differ in curvature.
-    ``adapted``/``warmup_state``: see ``adaptive_sample``."""
-    draws = as_draws(rng, init_positions)
+    ``adapted``/``warmup_state``: see ``adaptive_sample``.  ``axis_name``:
+    the chains sharded over its ranks, ``init_positions`` this rank's
+    block (``parallel.shard_chains``), ``rng`` seeded alike on every rank
+    (module docstring; ``parallel.gather_chains`` collects the result)."""
+    draws = as_draws(rng, init_positions, axis_name)
     step = make_hmc_transition(batched_value_and_grad(logdensity_fn),
                                num_integration_steps)
     C = init_positions.shape[0]
@@ -307,7 +401,7 @@ def hmc_sample(logdensity_fn: Callable, init_positions: torch.Tensor, rng,
 
     (samples, lds, acc, divs, q, eps, inv_mass, ws) = adaptive_sample(
         transition, init_positions, num_warmup, num_samples, init_step_size,
-        target_accept, adapted, warmup_state, shared_adaptation)
+        target_accept, adapted, warmup_state, shared_adaptation, axis_name)
     return HMCResult(samples=samples, logdensities=lds, accept_rate=acc,
                      step_size=eps, inv_mass=inv_mass, divergences=divs,
                      final_positions=q, warmup_state=ws)

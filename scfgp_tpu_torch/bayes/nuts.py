@@ -38,6 +38,13 @@ alone, whatever depth the chains reach: the momentum (C, P); then per
 doubling j < max_depth the direction bits (C,), the 2^j leaf uniforms
 (2^j, C) and the merge uniform (C,).  The JAX package draws the same per
 chain from its key tree (``nuts.py:129-132, 178-201, 407-459, 506``).
+
+Chains sharded over ranks (``axis_name``): as ``hmc.adaptive_sample``,
+which both share; the dynamic sampler's ``mean_depth`` is over every
+rank's chains too.  A rank's chains may stop building before another's, so
+the ranks take different numbers of gradients (``gradients`` is this
+rank's), but a transition's draws are made at its start, so they stay in
+step.
 """
 
 from __future__ import annotations
@@ -47,7 +54,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .hmc import MAX_DELTA_ENERGY, adaptive_sample, as_draws
+from .hmc import (MAX_DELTA_ENERGY, adaptive_sample, all_chains, as_draws,
+                  row_sum)
 from .predictive import batched_value_and_grad
 
 
@@ -85,7 +93,7 @@ def _leapfrog_1(value_and_grad, z, r, g, e, inv_mass):
 def _leaf(ld, r, inv_mass, h0, neg_inf):
     """A leaf's ``(divergent, log weight, accept prob)`` per chain from its
     energy error; a divergent leaf, non-finite included, weighs nothing."""
-    delta = -ld + 0.5 * torch.sum(r * r * inv_mass, dim=-1) - h0
+    delta = -ld + 0.5 * row_sum(r * r * inv_mass) - h0
     div = ~torch.isfinite(delta) | (delta > MAX_DELTA_ENERGY)
     return (div, torch.where(div, neg_inf, -delta),
             torch.where(div, torch.zeros_like(delta),
@@ -95,8 +103,8 @@ def _leaf(ld, r, inv_mass, h0, neg_inf):
 def _is_turning(sum_r, r_a, r_b, inv_mass):
     """The generalised U-turn check of a block, per chain
     (``nuts.py:70-73``)."""
-    return ((torch.sum(sum_r * inv_mass * r_a, dim=-1) <= 0.0)
-            | (torch.sum(sum_r * inv_mass * r_b, dim=-1) <= 0.0))
+    return ((row_sum(sum_r * inv_mass * r_a) <= 0.0)
+            | (row_sum(sum_r * inv_mass * r_b) <= 0.0))
 
 
 def _trailing_ones(n: int) -> int:
@@ -116,7 +124,7 @@ def dynamic_transition(value_and_grad: Callable, z0, eps, inv_mass,
              draws.uniform((C,))) for j in range(max_depth)]
     ld0, g0 = value_and_grad(z0)
     grads = 1
-    h0 = -ld0 + 0.5 * torch.sum(r0 * r0 * inv_mass, dim=-1)
+    h0 = -ld0 + 0.5 * row_sum(r0 * r0 * inv_mass)
     neg_inf = torch.full((C,), -math.inf, dtype=dt, device=dev)
     no = torch.zeros(C, dtype=torch.bool, device=dev)
 
@@ -215,7 +223,7 @@ def static_transition(value_and_grad: Callable, z0, eps, inv_mass,
     neg_inf = torch.full((C,), -math.inf, dtype=z0.dtype, device=z0.device)
     r0 = draws.normal(z0.shape) * (1.0 / torch.sqrt(inv_mass))
     ld0, g0 = value_and_grad(z0)
-    h0 = -ld0 + 0.5 * torch.sum(r0 * r0 * inv_mass, dim=-1)
+    h0 = -ld0 + 0.5 * row_sum(r0 * r0 * inv_mass)
 
     z_minus = z_plus = z_prop = z0
     r_minus = r_plus = r0
@@ -263,15 +271,15 @@ def nuts_sample(logdensity_fn: Callable, init_positions: torch.Tensor, rng,
                 num_warmup: int = 500, num_samples: int = 500,
                 max_depth: int = 8, init_step_size: float = 0.01,
                 target_accept: float = 0.8, adapted=None,
-                warmup_state=None) -> NUTSResult:
+                warmup_state=None, axis_name=None) -> NUTSResult:
     """C chains of dynamic NUTS (``scfgp_tpu/bayes/nuts.py:269-332``),
     with the warmup of ``hmc.hmc_sample`` shared by the chains (the mean
     acceptance statistic, all chains' draws).  Each transition takes at
     most ``2^max_depth`` batched gradients, as its deepest chain needs.
-    ``adapted``/``warmup_state``: see ``hmc.adaptive_sample``.
+    ``adapted``/``warmup_state``/``axis_name``: see ``hmc.hmc_sample``.
     ``mean_depth`` is the chains' mean tree depth over the sampling
     transitions; ``depths`` and ``gradients`` read every transition."""
-    draws = as_draws(rng, init_positions)
+    draws = as_draws(rng, init_positions, axis_name)
     vg = batched_value_and_grad(logdensity_fn)
     C, P = init_positions.shape
     depths, grads = [], [0]
@@ -285,13 +293,15 @@ def nuts_sample(logdensity_fn: Callable, init_positions: torch.Tensor, rng,
 
     (samples, lds, acc, divs, q, eps, inv_mass, ws) = adaptive_sample(
         transition, init_positions, num_warmup, num_samples, init_step_size,
-        target_accept, adapted, warmup_state, shared_adaptation=True)
+        target_accept, adapted, warmup_state, shared_adaptation=True,
+        axis_name=axis_name)
     depths = (torch.stack(depths) if depths else
               torch.zeros((0, C), dtype=torch.int64))
     kept = depths[depths.shape[0] - num_samples:].to(init_positions.dtype)
     return NUTSResult(samples=samples, logdensities=lds, accept_rate=acc,
                       step_size=eps, inv_mass=inv_mass,
-                      mean_depth=torch.mean(torch.mean(kept, dim=1)),
+                      mean_depth=torch.mean(torch.mean(
+                          all_chains(kept, axis_name, dim=1), dim=1)),
                       divergences=divs, final_positions=q, warmup_state=ws,
                       depths=depths, gradients=grads[0])
 
@@ -315,12 +325,13 @@ def nuts_sample_static(logdensity_fn: Callable, init_positions: torch.Tensor,
                        depth: int = 6, init_step_size: float = 0.01,
                        target_accept: float = 0.8, adapted=None,
                        warmup_state=None,
-                       shared_adaptation: bool = True) -> NUTSResult:
+                       shared_adaptation: bool = True,
+                       axis_name=None) -> NUTSResult:
     """Static multinomial NUTS over C chains, with the warmup adaptation
     of ``hmc.hmc_sample`` (shared, or per chain with
     ``shared_adaptation=False``); each transition costs 2^depth batched
     gradients.  Arguments as ``hmc.hmc_sample``."""
-    draws = as_draws(rng, init_positions)
+    draws = as_draws(rng, init_positions, axis_name)
     vg = batched_value_and_grad(logdensity_fn)
     C, P = init_positions.shape
 
@@ -330,7 +341,7 @@ def nuts_sample_static(logdensity_fn: Callable, init_positions: torch.Tensor,
 
     (samples, lds, acc, divs, q, eps, inv_mass, ws) = adaptive_sample(
         transition, init_positions, num_warmup, num_samples, init_step_size,
-        target_accept, adapted, warmup_state, shared_adaptation)
+        target_accept, adapted, warmup_state, shared_adaptation, axis_name)
     return NUTSResult(samples=samples, logdensities=lds, accept_rate=acc,
                       step_size=eps, inv_mass=inv_mass,
                       mean_depth=torch.tensor(float(depth)),

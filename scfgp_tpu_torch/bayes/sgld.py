@@ -19,6 +19,12 @@ replacement and shared by all chains (only with a minibatch), and the
 noise (C, P).  A non-finite gradient is masked out of the shared ``v``; a
 non-finite proposal is rejected in place and counted.  Thinning keeps one
 draw in ``thin`` on the device.
+
+Chains sharded over ranks (``axis_name``, as ``hmc.hmc_sample``): the
+shared metric's squared finite gradients and finite-chain flags are
+gathered from every rank and reduced as unsharded, and ``nonfinite`` is
+summed over the ranks; the rows are the same draw on every rank and the
+noise each rank's slice of the unsharded draw (``hmc.ChainSlice``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .hmc import as_draws
+from ..ops.collectives import all_reduce_sum
+from .hmc import all_chains, as_draws
 from .predictive import batched_value_and_grad, make_logposterior
 
 
@@ -39,7 +46,8 @@ class SGLDResult(NamedTuple):
     step_size: torch.Tensor     # () after decay
     precond: torch.Tensor       # (P,) final preconditioner diagonal G
     nonfinite: torch.Tensor = None  # () non-finite proposals rejected
-    final_carry: tuple = None   # (q, v, t, bad): continues the chain
+    # (q, v, t, bad): continues the chain; sharded, this rank's q and bad
+    final_carry: tuple = None
 
 
 def make_minibatch_value_and_grad(X, y, D, S, M, batch_size: int,
@@ -77,17 +85,19 @@ def sgld_sample(value_and_grad_fn: Callable, init_positions: torch.Tensor,
                 step_size: float = 1e-6, step_decay: float = 0.0,
                 thin: int = 1, preconditioner: str = "rmsprop",
                 precond_alpha: float = 0.99, precond_lambda: float = 1e-5,
-                init_carry: tuple = None) -> SGLDResult:
+                init_carry: tuple = None, axis_name=None) -> SGLDResult:
     """Run C chains of (p)SGLD for ``num_warmup + num_samples * thin``
     steps, keeping every ``thin``-th after warmup.  ``value_and_grad_fn``
     as ``make_minibatch_value_and_grad``'s.  The step size decays as
     ``eps0 (1 + t)^-step_decay``.  ``init_carry``: a previous result's
-    ``final_carry`` (with ``num_warmup=0``) continues its chain."""
+    ``final_carry`` (with ``num_warmup=0``) continues its chain.
+    ``axis_name``: the chains sharded over its ranks, as in
+    ``hmc.hmc_sample`` (module docstring)."""
     if preconditioner not in ("rmsprop", "none"):
         raise ValueError("preconditioner must be 'rmsprop' or 'none'")
     C, P = init_positions.shape
     dtype, device = init_positions.dtype, init_positions.device
-    draws = as_draws(rng, init_positions)
+    draws = as_draws(rng, init_positions, axis_name)
     use_pre = preconditioner == "rmsprop"
     alpha, lam = precond_alpha, precond_lambda
     batch = getattr(value_and_grad_fn, "batch_size", 0)
@@ -108,7 +118,9 @@ def sgld_sample(value_and_grad_fn: Callable, init_positions: torch.Tensor,
             g_ok = torch.all(torch.isfinite(grads), dim=1)
             g2 = torch.where(g_ok[:, None], grads * grads,
                              torch.zeros_like(grads))
-            n_ok = torch.sum(g_ok.to(dtype))
+            g2, ok = all_chains(g2, axis_name), all_chains(g_ok.to(dtype),
+                                                           axis_name)
+            n_ok = torch.sum(ok)
             v_upd = alpha * v + (1.0 - alpha) * (
                 torch.sum(g2, dim=0) / torch.clamp(n_ok, min=1.0))
             v = torch.where(n_ok > 0, v_upd, v)
@@ -135,6 +147,9 @@ def sgld_sample(value_and_grad_fn: Callable, init_positions: torch.Tensor,
         for _ in range(thin):
             carry, vals, eps = step(carry)
         samples[i], lds[i] = carry[0], vals
+    nonfinite = carry[3]
+    if axis_name is not None:
+        (nonfinite,) = all_reduce_sum([nonfinite], axis_name)
     return SGLDResult(samples=samples, logdensities=lds, step_size=eps,
-                      precond=precond_of(carry[1]), nonfinite=carry[3],
+                      precond=precond_of(carry[1]), nonfinite=nonfinite,
                       final_carry=carry)

@@ -107,11 +107,11 @@ def all_reduce_sum(tensors, axis_name):
     return out
 
 
-def gather_rows(t: torch.Tensor, axis_name) -> torch.Tensor:
-    """The ranks' ``t`` stacked along dimension 0 in rank order; not
+def gather_rows(t: torch.Tensor, axis_name, dim: int = 0) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in rank order; not
     differentiable."""
     group = resolve_group(axis_name)
-    t = t.detach().contiguous()
+    t = t.detach().movedim(dim, 0).contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    return torch.cat(parts)
+    return torch.cat(parts).movedim(0, dim)

@@ -2,7 +2,8 @@
 
 ``tests/test_torch_parallel.py`` runs these on W gloo ranks through
 ``scfgp_tpu_torch.parallel.launch`` (one spawn a world size; the world of
-8 runs the data-parallel and the tensor-parallel checks) and holds what they return against the JAX
+8 runs the data-parallel and the tensor-parallel checks, the world of 2
+the chain-sharded samplers) and holds what they return against the JAX
 package and the single-device port.  This module imports only
 torch and the port, never ``tests/conftest.py`` (which imports JAX), so
 that a rank starts from a fresh import of the port alone.
@@ -14,13 +15,18 @@ import torch
 import torch.distributed as dist
 
 from scfgp_tpu_torch import SCFGP
+from scfgp_tpu_torch.bayes import (hmc_sample, make_logposterior,
+                                   make_minibatch_value_and_grad,
+                                   nuts_sample, nuts_sample_static,
+                                   sgld_sample)
 from scfgp_tpu_torch.models.model import fit_fast_batch
 from scfgp_tpu_torch.models.objective import loss_and_grad, loss_fn
 from scfgp_tpu_torch.models.params import params_from_numpy
 from scfgp_tpu_torch.ops.streaming import loss_and_grad_streaming
 from scfgp_tpu_torch.opt.optimizers import make_optimizer
 from scfgp_tpu_torch.parallel import (make_dp_eval, make_dp_train_step,
-                                      make_mesh, make_mesh2d, shard_rows,
+                                      gather_chains, make_mesh,
+                                      make_mesh2d, shard_chains, shard_rows,
                                       shard_rows_2d, tp_loss,
                                       tp_loss_and_grad, make_tp_train_step)
 from scfgp_tpu_torch.parallel.multihost import (init_distributed,
@@ -124,6 +130,85 @@ def dp_rank(cfg: dict) -> dict:
         out["dryrun"] = dryrun_rank(W, DEVICE)
     if "tp" in cfg:
         out["tp"] = tp_rank(cfg["tp"])
+    if "chains" in cfg:
+        out["chains"] = chains_rank(mesh, cfg["chains"])
+    return out
+
+
+class Replay:
+    """Draws made elsewhere (the JAX package's, from its key tree), served
+    in order; each must have the kind and shape asked for."""
+
+    def __init__(self, items):
+        self.items = list(items)
+
+    def _next(self, kind, shape):
+        k, a = self.items.pop(0)
+        assert k == kind and a.shape == tuple(shape), (k, kind, a.shape,
+                                                       shape)
+        return torch.as_tensor(a)
+
+    def normal(self, shape):
+        return self._next("normal", shape)
+
+    def uniform(self, shape):
+        return self._next("uniform", shape)
+
+    def bernoulli(self, shape):
+        return self._next("bernoulli", shape)
+
+    def randint(self, high, shape):
+        return self._next("randint", shape)
+
+
+CHAIN_FIELDS = ("samples", "logdensities", "final_positions", "accept_rate",
+                "step_size", "inv_mass", "precond", "divergences",
+                "nonfinite", "mean_depth", "depths")
+
+
+def chains_rank(mesh, cfg: dict) -> dict:
+    """Each sampler of ``cfg["runs"]`` on this rank's block of the chains
+    of ``cfg["q0"]``, with the draws ``cfg["runs"][name]["items"]`` (the
+    whole C-chain arrays; each rank keeps its slice), and the dynamic NUTS
+    of ``cfg["dynamic"]`` from a generator seeded alike on every rank, in
+    float64: this rank's result and the result gathered over the ranks,
+    as NumPy; then the refusals of an uneven chain count and of a bare
+    axis name."""
+    group = mesh.group("data")
+    X, y = torch.as_tensor(cfg["X"]), torch.as_tensor(cfg["y"])
+    D, S, M = cfg["dims"]
+    q = shard_chains(mesh, cfg["q0"], device=DEVICE)
+    lp = make_logposterior(X, y, D, S, M)
+    out = {}
+    runs = dict(cfg["runs"], nuts_dynamic=None)
+    for name, run in runs.items():
+        rp = Replay(run["items"] if run else ())
+        if name == "nuts_dynamic":
+            seed, kw = cfg["dynamic"]
+            res = nuts_sample(lp, q, torch.Generator().manual_seed(seed),
+                              axis_name=group, **kw)
+        elif name == "sgld":
+            vg = make_minibatch_value_and_grad(X, y, D, S, M,
+                                               run["batch"])
+            res = sgld_sample(vg, q, rp, axis_name=group, **run["kw"])
+        else:
+            sampler = hmc_sample if name.startswith("hmc") else \
+                nuts_sample_static
+            res = sampler(lp, q, rp, axis_name=group, **run["kw"])
+        out[name] = {"left": len(rp.items)}
+        for tag, r in (("local", res), ("gathered",
+                                        gather_chains(mesh, res))):
+            out[name][tag] = {f: getattr(r, f).detach().numpy()
+                              for f in CHAIN_FIELDS
+                              if getattr(r, f, None) is not None}
+    try:
+        shard_chains(mesh, cfg["q0"][:3])
+    except ValueError as e:
+        out["uneven_refused"] = str(e)
+    try:
+        hmc_sample(lp, q, 0, num_warmup=1, num_samples=1, axis_name="data")
+    except TypeError as e:
+        out["name_refused"] = str(e)
     return out
 
 

@@ -2,9 +2,11 @@
 the streaming path runs them: K1f and K1b (pass 2) and K2f and K2b (pass 1)
 at one block of phase 9, (block, D, S + M)."""
 
+import contextlib
 import os
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -127,8 +129,8 @@ def test_phase_14_keeps_its_shapes_and_budgets():
     sgld_scale's ULA leg cut to 5 + 15 (its pSGLD legs at the JAX budgets,
     the driver's defaults), and each leg's estimator on two 16384-row
     blocks of its data; the dynamic NUTS at 8 chains, max_depth 6, 30 +
-    30, the host-looped NUTS and HMC 2 transitions each; bench_hmc at 10 +
-    10; the campaign --tiny on co2, seed 0, every arm."""
+    30, the host-looped NUTS and HMC 2 transitions each; bench_hmc at 5 +
+    5; the campaign --tiny on co2, seed 0, every arm."""
     from scfgp_tpu_torch.experiments import bayes_predictive, sgld_scale
     assert chip_smoke.BAYES_MODEL == dict(sparsity=20, nfeats=50)
     assert chip_smoke.STREAM_BAYES_BLOCK == 1024
@@ -147,7 +149,7 @@ def test_phase_14_keeps_its_shapes_and_budgets():
                                         num_warmup=0, num_samples=2)
     assert (chip_smoke.HOST_HMC["num_warmup"],
             chip_smoke.HOST_HMC["num_samples"]) == (0, 2)
-    assert chip_smoke.BENCH_HMC_ARGS == ["--warmup", "10", "--samples", "10"]
+    assert chip_smoke.BENCH_HMC_ARGS == ["--warmup", "5", "--samples", "5"]
     assert chip_smoke.CAMPAIGN_ARGS == ["--tiny", "--datasets", "co2",
                                         "--seeds", "1"]
     assert "co2" in bayes_predictive.DATASETS
@@ -215,6 +217,84 @@ def test_phase_15b_rank_checks_run_on_two_cpu_ranks():
         assert (r["tp"]["vs_plain"]["n"], r["tp"]["vs_plain"]["k"]) == (512, 8)
     assert [r["batch"]["vs_plain"]["trials"] for r in (r0, r1)] == [[0, 1],
                                                                     [2, 2]]
+
+
+def test_phase_15d_keeps_its_width_and_budgets():
+    """15d: 8 chains, 4 a rank on 2 ranks, at phase 12's width; HMC at 10 +
+    10 transitions of 8 leapfrog steps (shared and fleet), the static NUTS
+    fleet at depth 3 and pSGLD at 10 + 10 steps on 512-row minibatches:
+    1 + 8, 8 and 1 batched gradients a transition."""
+    assert chip_smoke.CHAIN_SHARDED // chip_smoke.PARALLEL_RANKS == 4
+    assert chip_smoke.BAYES_MODEL == dict(sparsity=20, nfeats=50)
+    runs = chip_smoke.CHAIN_RUNS
+    assert [runs[n][0] for n in runs] == ["hmc", "hmc", "nuts_static",
+                                         "sgld"]
+    assert runs["hmc_fleet"][1]["shared_adaptation"] is False
+    assert runs["nuts_fleet"][1]["shared_adaptation"] is False
+    assert [chip_smoke.chain_gradients(n) for n in runs] == [180, 180, 160,
+                                                             20]
+    assert chip_smoke.CHAIN_SGLD_BATCH == 512
+
+
+def test_phase_15d_rank_checks_run_on_two_cpu_ranks():
+    """15d's rank function, rehearsed on two gloo ranks of the CPU in
+    float64 at a small width (D=2, S=2, M=4, 600 rows: SGLD's minibatch of
+    512 is a draw of rows), against the same runs unsharded in this
+    process with the log density taken in blocks of a rank's chains: every
+    field bitwise, no accept decision flipped, the counts equal, the
+    ranks' gathered fields the same; the dry run's four chain-sharded
+    parts on each rank; and each rank's kernel-against-plain rows at a
+    rank's chains on all the rows and on a minibatch."""
+    from scfgp_tpu_torch.bayes import reduced_dim
+    from scfgp_tpu_torch.data.datasets import synthetic_gp_rff
+    from scfgp_tpu_torch.models.params import init_params, pack_params
+    from scfgp_tpu_torch.parallel import launch
+    D, S, M = 2, 2, 4
+    X, y = synthetic_gp_rff(n=600, d=D, s=S, m=M, noise_std=0.1, seed=0,
+                            dtype=np.float64)
+    gen = torch.Generator().manual_seed(3)
+    q0 = torch.stack([pack_params(init_params(gen, D, S, M,
+                                              dtype=torch.float64))
+                      [:reduced_dim(D, S, M)]
+                      for _ in range(chip_smoke.CHAIN_SHARDED)])
+    cfg = dict(device="cpu", data=(X, y, (D, S, M)), q0=q0.numpy())
+    res = launch.run(chip_smoke.chain_rank_checks, 2, cfg, device="cpu",
+                     threads=1, timeout=300)
+    data = (torch.as_tensor(X), torch.as_tensor(y), (D, S, M))
+    with _threads(1):
+        ref = {name: chip_smoke.chain_fields(chip_smoke.chain_sample(
+            name, data, q0, torch.Generator().manual_seed(seed),
+            block=chip_smoke.CHAIN_SHARDED // 2))
+            for name, (_, _, seed) in chip_smoke.CHAIN_RUNS.items()}
+    rows = chip_smoke.chain_rows(res, ref)
+    assert set(rows) == {"hmc", "hmc_fleet", "nuts_fleet", "sgld"}
+    for name, row in rows.items():
+        assert not row["accept_flips"], (name, row)
+        assert all(row["counts_equal"].values()) and row["digests_equal"]
+        assert all(row["bitwise"].values()), (name, row)
+        assert res[0][name]["chains"] == chip_smoke.CHAIN_SHARDED // 2
+    for r in res:
+        assert set(r["dryrun"]) == {"hmc", "hmc_fleet", "nuts_fleet", "sgld"}
+        assert r["dryrun"] == res[0]["dryrun"]
+        plain = r["vs_plain"]
+        assert [(plain[w]["chains"], plain[w]["rows"])
+                for w in ("logposterior", "minibatch")] == [(4, 600), (4, 512)]
+        for row in plain.values():
+            assert row["finite"]
+            assert row["ld_rel_err"] <= chip_smoke.COST_TOL
+            assert max(row["grad_rel_err"].values()) <= chip_smoke.GRAD_TOL
+
+
+@contextlib.contextmanager
+def _threads(n):
+    """torch on ``n`` threads inside, as a rank of ``launch.run(...,
+    threads=n)`` runs: a CPU reduction may split by the thread count."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
 
 
 KERNELS = ("phi_fwd", "phi_bwd", "gram_fwd", "gram_bwd", "cholesky",

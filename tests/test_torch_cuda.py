@@ -829,3 +829,50 @@ def test_fit_fast_under_tf32_resumes_bitwise_on_card(cuda_device, tmp_path):
     seg = fit(checkpoint_path=str(tmp_path / "c.ckpt"), checkpoint_every=10)
     assert all(torch.equal(a, b) for a, b in zip(one.params, seg.params))
     assert one.evals["COST"][1] == seg.evals["COST"][1]
+
+
+@pytest.mark.cuda
+def test_chain_sharded_samplers_on_card_match_unsharded(cuda_device):
+    """Two gloo ranks sharing the card, 4 chains each, at a small width
+    (D=8, S=4, M=12, 1000 kin8nm rows): 15d's four runs (chip_smoke.
+    CHAIN_RUNS) gathered, bitwise the same runs unsharded in this process
+    on the same seeded draws with the log density taken in blocks of 4
+    chains, no accept decision flipped, the counts equal and the ranks
+    agreeing; each rank's runs launch K1f and K1b, and K1f and K1b agree
+    with the plain map on a rank's chains (all rows and a minibatch) at
+    COST_TOL and GRAD_TOL."""
+    from chip_smoke import (CHAIN_RUNS, CHAIN_SHARDED, COST_TOL, GRAD_TOL,
+                            chain_fields, chain_rank_checks, chain_rows,
+                            chain_sample)
+    from scfgp_tpu_torch.bayes import reduced_dim
+    from scfgp_tpu_torch.models.params import pack_params
+    from scfgp_tpu_torch.parallel import launch
+    D, S, M = 8, 4, 12
+    Xt, yt, _, _, _ = load_kin8nm(seed=0)
+    m = SCFGP(sparsity=S, nfeats=M, seed=0, device="cuda")
+    m.set_data(Xt[:1000], yt[:1000])
+    gen = torch.Generator().manual_seed(3)
+    q0 = torch.stack([pack_params(init_params(gen, D, S, M))
+                      [:reduced_dim(D, S, M)]
+                      for _ in range(CHAIN_SHARDED)])
+    cfg = dict(device="cuda", q0=q0.numpy(),
+               data=(m.X.cpu().numpy(), m.y.cpu().numpy(), (D, S, M)))
+    res = launch.run(chain_rank_checks, 2, cfg, timeout=600)
+    data = (m.X, m.y, (D, S, M))
+    ref = {name: chain_fields(chain_sample(
+        name, data, q0.cuda(),
+        torch.Generator(device="cuda").manual_seed(seed),
+        block=CHAIN_SHARDED // 2))
+        for name, (_, _, seed) in CHAIN_RUNS.items()}
+    for name, row in chain_rows(res, ref).items():
+        assert not row["accept_flips"], (name, row)
+        assert all(row["counts_equal"].values()) and row["digests_equal"]
+        assert all(row["bitwise"].values()), (name, row)
+        for r in res:
+            assert r[name]["launches"]["phi_fwd"] > 0
+            assert r[name]["launches"]["phi_bwd"] > 0
+    for r in res:
+        for row in r["vs_plain"].values():
+            assert row["finite"], row
+            assert row["ld_rel_err"] <= COST_TOL, row
+            assert max(row["grad_rel_err"].values()) <= GRAD_TOL, row

@@ -19,7 +19,13 @@ Both get the same θ and data as NumPy arrays, in float64.  Tolerances:
     1e-5 (tests/test_batch_fit.py:137-151);
   * TP (tests/test_tp.py's): loss rtol 1e-10, alpha and L rtol 1e-8 (L
     atol 1e-10), gradient rtol 1e-7 atol 1e-11, 15 adam steps rtol 1e-6
-    atol 1e-9.
+    atol 1e-9;
+  * chain-sharded samplers (the world of 2, C = 4 chains, 2 a rank, each
+    rank served JAX's unsharded draws and keeping its slice): the gathered
+    chains against the JAX package's unsharded run on the same key tree at
+    tests/test_torch_bayes_chains.py's CHAIN_TOL (rtol 1e-7, atol 1e-9:
+    rounding, ~1e-15 a sum, grows along the chains), divergence and
+    non-finite counts exactly.
 A world of one rank is bitwise the plain ``loss_fn``.
 """
 
@@ -35,6 +41,10 @@ import pytest
 import torch
 
 import _torch_parallel_ranks as ranks
+import test_torch_bayes as tb
+from scfgp_tpu.bayes import hmc as jhmc
+from scfgp_tpu.bayes import nuts as jnuts
+from scfgp_tpu.bayes import sgld as jsgld
 from scfgp_tpu.models.objective import loss_fn as jax_loss_fn
 from scfgp_tpu.models.params import init_params as jax_init_params
 from scfgp_tpu.parallel import mesh as jmesh
@@ -44,6 +54,7 @@ from scfgp_tpu.opt.optimizers import tree_add as jax_tree_add
 from scfgp_tpu.parallel.tp import shard_rows_2d as jax_shard_rows_2d
 from scfgp_tpu.parallel.tp import tp_loss as jax_tp_loss
 from scfgp_tpu_torch import SCFGP
+from scfgp_tpu_torch.bayes import nuts_sample
 from scfgp_tpu_torch.data.datasets import synthetic_gp_rff
 from scfgp_tpu_torch.models.model import fit_fast_batch
 from scfgp_tpu_torch.models.objective import loss_and_grad
@@ -54,6 +65,7 @@ from scfgp_tpu_torch.parallel import launch, pad_rows
 from scfgp_tpu_torch.parallel.dp import make_dp_train_step
 from scfgp_tpu_torch.parallel.multihost import (init_distributed,
                                                 is_coordinator)
+from test_torch_bayes_chains import CHAIN_TOL, _hmc_items, _nuts_items
 
 torch.set_num_threads(1)
 
@@ -118,6 +130,75 @@ def _tp_problem(seed, s=TP_S, m=TP_M):
 TP_CASES = {"loss": _tp_problem(0), "grad": _tp_problem(1),
             "trajectory": _tp_problem(2),
             "indivisible": _tp_problem(0, s=3, m=10)}  # S+M = 13
+
+# The chain-sharded samplers of the world of 2: name -> (JAX sampler,
+# keywords, key).
+CHAIN_C = 4
+_HMC = dict(num_warmup=8, num_samples=8, num_integration_steps=4,
+            init_step_size=0.01)
+_NUTS = dict(num_warmup=5, num_samples=5, depth=3, init_step_size=0.01)
+_SGLD = dict(num_warmup=4, num_samples=3, thin=2, step_size=1e-4,
+             step_decay=0.3)
+SGLD_BATCH = 16
+CHAIN_RUNS = {
+    "hmc_shared": (jhmc.hmc_sample, dict(_HMC, shared_adaptation=True), 7),
+    "hmc_fleet": (jhmc.hmc_sample, dict(_HMC, shared_adaptation=False), 12),
+    "nuts_shared": (jnuts.nuts_sample_static,
+                    dict(_NUTS, shared_adaptation=True), 8),
+    "nuts_fleet": (jnuts.nuts_sample_static,
+                   dict(_NUTS, shared_adaptation=False), 13),
+    "sgld": (jsgld.sgld_sample, _SGLD, 11),
+}
+
+
+def _chain_items(name):
+    """JAX's unsharded draws of the run ``name`` from its key tree
+    (tests/test_torch_bayes_chains.py), as NumPy, in the port's order."""
+    _, kw, seed = CHAIN_RUNS[name]
+    key, C = jax.random.PRNGKey(seed), CHAIN_C
+    if name.startswith("hmc"):
+        return _hmc_items(key, kw["num_warmup"] + kw["num_samples"], C)
+    if name.startswith("nuts"):
+        return _nuts_items(key, kw["num_warmup"] + kw["num_samples"], C,
+                           kw["depth"]).items
+    rp = tb.Replay()
+    n = len(tb.data()[0])
+    for k in jax.random.split(key, kw["num_warmup"]
+                              + kw["num_samples"] * kw["thin"]):
+        kb, kn = jax.random.split(k)
+        rp.add("randint", jax.random.randint(kb, (SGLD_BATCH,), 0, n))
+        rp.add("normal", jax.random.normal(kn, (C, tb.P), jnp.float64))
+    return rp.items
+
+
+# The dynamic NUTS, sharded against the port's unsharded run from the same
+# seed: (seed, keywords).
+DYNAMIC = (5, dict(num_warmup=4, num_samples=4, max_depth=4,
+                   init_step_size=0.01))
+
+
+def _chains_config():
+    X, y = tb.data()
+    return dict(X=X, y=y, q0=tb.inits(CHAIN_C), dims=(tb.D, tb.S, tb.M),
+                dynamic=DYNAMIC,
+                runs={name: dict(items=_chain_items(name), kw=kw,
+                                 batch=SGLD_BATCH)
+                      for name, (_, kw, _) in CHAIN_RUNS.items()})
+
+
+@functools.cache
+def _jax_chains(name):
+    fn, kw, seed = CHAIN_RUNS[name]
+    q0 = jnp.asarray(tb.inits(CHAIN_C))
+    if name == "sgld":
+        X, y = tb.data()
+        target = jsgld.make_minibatch_value_and_grad(
+            jnp.asarray(X), jnp.asarray(y), tb.D, tb.S, tb.M, SGLD_BATCH)
+    else:
+        target = tb.targets()[0]
+    return jax.jit(lambda q, k: fn(target, q, k, **kw))(
+        q0, jax.random.PRNGKey(seed))
+
 
 # The JAX references, each computed once (jitted), and all of them while
 # the ranks run (``worlds``).
@@ -185,6 +266,8 @@ def _jax_references():
             _jax_dp_loss(W, mode)
     for shape in TP_MESHES:
         _jax_tp_loss(shape)
+    for name in CHAIN_RUNS:
+        _jax_chains(name)
 
 
 @pytest.fixture(scope="module")
@@ -194,6 +277,8 @@ def worlds():
     def run(W):
         cfg = dict(CASES, steps=STEPS, block=BLOCK, fit_data=_fit_data(),
                    dryrun=W == 2)
+        if W == 2:
+            cfg.update(chains=_chains_config())
         if W == 8:
             cfg.update(batch=_batch_splits(5), batch_opt=BATCH_OPT,
                        tp=dict(TP_CASES, meshes=TP_MESHES, steps=TP_STEPS))
@@ -426,8 +511,76 @@ def test_dryrun_multichip_rank_runs_every_mode(worlds):
     for res in worlds[2]:
         assert set(res["dryrun"]) == {"gspmd", "shard_map", "tp",
                                       "streaming", "fit_fast",
-                                      "fit_fast_batch"}
+                                      "fit_fast_batch", "hmc", "hmc_fleet",
+                                      "nuts_fleet", "sgld"}
         assert len(res["dryrun"]["fit_fast_batch"]) == 3
+        # gathered, the chains' mean log density is the same on each rank
+        for part in ("hmc", "hmc_fleet", "nuts_fleet", "sgld"):
+            assert res["dryrun"][part] == worlds[2][0]["dryrun"][part]
+
+
+# -- chains.py and the samplers' axis_name -----------------------------------
+
+
+@pytest.mark.parametrize("name", list(CHAIN_RUNS))
+def test_chain_sharded_sampler_equals_jax_unsharded(worlds, name):
+    """Two ranks of 2 chains each, every rank served JAX's unsharded draws
+    (keeping its slice): the gathered chains are JAX's unsharded run."""
+    want = _jax_chains(name)
+    res = [r["chains"][name] for r in worlds[2]]
+    for r in res:
+        assert r["left"] == 0
+        got = r["gathered"]
+        for f in ("samples", "logdensities", "final_positions",
+                  "accept_rate", "step_size", "inv_mass", "precond"):
+            if f in got:
+                np.testing.assert_allclose(got[f], np.asarray(
+                    getattr(want, f)), err_msg=f, **CHAIN_TOL)
+        for f in ("divergences", "nonfinite"):
+            if f in got:
+                assert int(got[f]) == int(getattr(want, f)), f
+    # every rank reports the same global scalars and shared values, and
+    # holds its own block of the chains
+    fleet = name.endswith("fleet")
+    for r in res[1:]:
+        for f in ("accept_rate", "divergences", "nonfinite", "precond") + (
+                () if fleet else ("step_size", "inv_mass")):
+            if f in r["local"]:
+                np.testing.assert_array_equal(r["local"][f],
+                                              res[0]["local"][f], f)
+    for r, half in zip(res, (slice(0, 2), slice(2, 4))):
+        np.testing.assert_array_equal(r["local"]["samples"],
+                                      r["gathered"]["samples"][:, half])
+        if fleet:
+            assert r["local"]["step_size"].shape == (CHAIN_C // 2,)
+
+
+def test_chain_sharded_dynamic_nuts_equals_the_unsharded_port(worlds):
+    """A generator seeded alike on every rank: each rank draws the whole
+    transition's inputs and keeps its slice, so the sharded chains are the
+    unsharded run's, whatever depth each rank's chains reach."""
+    seed, kw = DYNAMIC
+    lp = tb.targets()[1]
+    want = nuts_sample(lp, tb.t_(tb.inits(CHAIN_C)),
+                       torch.Generator().manual_seed(seed), **kw)
+    for r in worlds[2]:
+        got = r["chains"]["nuts_dynamic"]["gathered"]
+        for f in ("samples", "logdensities", "final_positions",
+                  "accept_rate", "step_size", "inv_mass", "mean_depth"):
+            np.testing.assert_allclose(got[f], getattr(want, f).numpy(),
+                                       err_msg=f, **CHAIN_TOL)
+        np.testing.assert_array_equal(got["depths"], want.depths.numpy())
+        assert int(got["divergences"]) == int(want.divergences)
+
+
+def test_shard_chains_refuses_an_uneven_chain_count(worlds):
+    for r in worlds[2]:
+        assert "3 chains do not divide" in r["chains"]["uneven_refused"]
+
+
+def test_chain_sampler_refuses_a_bare_axis_name(worlds):
+    for r in worlds[2]:
+        assert "mesh.group('data')" in r["chains"]["name_refused"]
 
 
 # -- multihost.py and launch.py ----------------------------------------------

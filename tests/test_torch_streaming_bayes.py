@@ -309,8 +309,8 @@ def test_sgld_scale_driver_runs_its_legs_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():
-    """The streaming Bayes path, the precision policy and the new drivers,
-    in a fresh process."""
+    """The streaming Bayes path, the precision policy, chain-sharded
+    sampling and the new drivers, in a fresh process."""
     code = ("import sys, scfgp_tpu_torch.bayes, scfgp_tpu_torch.bayes.nuts,"
             " scfgp_tpu_torch.ops.streaming,"
             " scfgp_tpu_torch.experiments.bayes_predictive,"
@@ -320,7 +320,12 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             " scfgp_tpu_torch.parallel, scfgp_tpu_torch.parallel.launch,"
             " scfgp_tpu_torch.ops.dispatch,"
             " scfgp_tpu_torch.experiments.precision_quality,"
-            " scfgp_tpu_torch.experiments.precision_matrix;"
+            " scfgp_tpu_torch.experiments.precision_matrix,"
+            " scfgp_tpu_torch.parallel.chains,"
+            " scfgp_tpu_torch.experiments.floor_oracle,"
+            " scfgp_tpu_torch.experiments.mnlp_floor,"
+            " scfgp_tpu_torch.experiments.kin8nm_floor,"
+            " scfgp_tpu_torch.experiments.bf16_accuracy_sweep;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
             "m.startswith('scfgp_tpu.')];"
