@@ -64,15 +64,16 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 10b. the served kin8nm model's posterior (2K = 554, 6553 rows) rebuilt
    through K3 and held against ``solve_posterior`` (torch's pair);
 11. batched sweeps and ensembles (BATCH_SHAPES and below): 11a K1f and K1b
-   with a trial axis, each trial bitwise its 2-D call, with the device
+   with a trial axis (up to the deep ladder's 192 trials of phase 17),
+   each trial bitwise its 2-D call, with the device
    times of the batched launch, of B 2-D launches and of the plain batched
    version; 11b ``fit_fast_batch`` of 10 boston trials against sequential
    ``fit_fast`` (float32 through the kernels, K1b launched once a step of
    the batch; float32 with every product past Phi per trial, and float64
    on the plain map, both at the JAX tolerances); 11c the
-   ported boston driver's batched sweep at full width (50 trials x m in
-   {10..50}); 11d its floor-closing ensembles on seeds 0-2; 11e the co2
-   driver (plain and composite) and the abalone and kin8nm drivers with
+   ported boston driver's batched sweep at full width (SWEEP_TRIALS = 20
+   trials x m in {10..50}); 11d its floor-closing ensembles on seeds 0-2;
+   11e the co2 driver (plain and composite) and the abalone and kin8nm drivers with
    --quick, with the floor pins of tests/test_end_to_end.py;
 12. the Bayes layer at the JAX campaign's kin8nm width (S=20, M=50, D=8,
    sampling dimension 1163) on the seed-0 split: 12a the chain-batched log
@@ -81,7 +82,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    busy share; 12b the fleet recipe (32 random-init HMC chains, 300 + 300
    transitions of 16 steps, per-chain adaptation) through the ported probe
    experiment, ``predict_bayes`` raw and recalibrated, pinned at NMSE <= 0.034
-   and MNLP <= -1.56; 12c tempered HMC (8 chains, 100 + 200, at most 12
+   and MNLP <= -1.56; 12c tempered HMC (8 chains, 100 + 100, at most 12
    rungs) through the ladder probe, then a second call that must reuse the
    persisted adaptation; 12d static NUTS, VI and minibatch SGLD at cut
    budgets, below the MAP arm's NMSE; 12e one diverging chain inside a
@@ -111,8 +112,8 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    D=256, S=M=128, 4 chains (pSGLD at B = 4096 and 16384, streaming ULA
    cut to 5 + 15 steps): draws/s and the ULA leg's peak memory, and one
    gradient of each leg's log posterior at the shapes the leg gives K1f
-   and K1b, kernel path against the plain map; 14d the dynamic NUTS (30 +
-   30) and the host-looped NUTS and HMC (2 transitions each) at kin8nm
+   and K1b, kernel path against the plain map; 14d the dynamic NUTS (10 +
+   10) and the host-looped NUTS and HMC (2 transitions each) at kin8nm
    width, 8 chains, max_depth 6: accept rate, depths, divergences and K1b
    launches against 2^d a transition; 14e experiments/bench_hmc.py at 5 +
    5; 14f experiments/bayes_predictive.py --tiny on co2, seed 0, every
@@ -163,12 +164,22 @@ Phases, one JSON line each (any failure raises and exits non-zero):
    and the co2 raw legs.  Each profile (``utils/profiling.py::
    kernel_profile``) reports the least lag from a launch to its kernel.
    Phase 16 runs in a process of its own (``precision_child``), whose
-   counts this one holds.
+   counts this one holds;
+17. the last ported drivers, in this process, within CAMPAIGNS_BUDGET_S
+   (75 s): experiments/tempering_probe.py, tempering_sweep.py and
+   deep_ladder.py at the JAX width (n = 2048, dimension 1163, 8 chains; up
+   to 48, 12 and 24 rungs, and the deep ladder's 64 plain chains), their
+   draws, warmups, pre-warmups and leapfrog steps cut (CAMPAIGN_OPTIONS,
+   CAMPAIGN_CONSTANTS), then the four boston_floor_probe*.py at one seed
+   with their fits cut: each report's keys against the JAX driver's
+   (experiments/results/hmc/*.json, PROBE_VARIANTS), every diagnostic
+   finite, every swap rate in (0, 1], every probe ratio finite, K1b once
+   a batched gradient.
 
 The launch counts of the six kernels are set to 0 just before each path
 (the serving path, phases 4-5, each training phase, the streaming kernel
 and GEMM routes, the crossover, the posterior through K3, and each path of
-phases 11 to 16; in 15b and 15c each rank, and in 16 its process, counts
+phases 11 to 17; in 15b and 15c each rank, and in 16 its process, counts
 its own launches and hands them back) and read just after;
 every training phase must launch K1f and K1b, the streaming kernel route
 K1f, K1b, K2f and K2b, its GEMM route K1f and K1b but neither K2f nor K2b,
@@ -290,11 +301,13 @@ K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
 KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm", "bench",
                                    "batch-boston", "batch-kin8nm",
                                    "batch-d256", "batch-bayes",
-                                   "batch-tempered"),
+                                   "batch-tempered", "batch-ladder",
+                                   "batch-fleet64"),
                        "phi_bwd": ("block", "kin8nm", "bench",
                                    "batch-boston", "batch-kin8nm",
                                    "batch-d256", "batch-bayes",
-                                   "batch-tempered"),
+                                   "batch-tempered", "batch-ladder",
+                                   "batch-fleet64"),
                        "gram_fwd": ("block", "kin8nm"),
                        "gram_bwd": ("block", "kin8nm")}
 # The kernel route, the GEMM route and the dense path each sum the 1e6 rows
@@ -320,10 +333,13 @@ STREAM_PEAK_EXTRA = 64 << 20
 # S=20: K=70), eight kin8nm trials at the served model's width, and four at
 # D=256, where both kernels take their wide design; and the 32 chains of
 # phase 12's fleet at the Bayes width (S=20, M=50: K=50), and the 96
-# trials (8 chains x 12 rungs) of phase 12c's tempering at that width.
+# trials (8 chains x 12 rungs) of phase 12c's tempering at that width; and
+# the tempering campaigns' batches on their 2048 rows (phase 17): the deep
+# ladder's 192 (8 chains x 24 rungs) and its 64 plain chains.
 BATCH_SHAPES = [("boston", 50, 455, 13, 70), ("kin8nm", 8, 6553, 8, 277),
                 ("d256", 4, 4096, 256, 500), ("bayes", 32, 6553, 8, 50),
-                ("tempered", 96, 6553, 8, 50)]
+                ("tempered", 96, 6553, 8, 50), ("ladder", 192, 2048, 8, 50),
+                ("fleet64", 64, 2048, 8, 50)]
 # Phase 11b: the trials of fit_fast_batch against sequential fit_fast.  In
 # float64 (the plain feature map on the card) they are held at the JAX
 # package's tolerances (tests/test_batch_fit.py:49-72): equal iteration
@@ -349,7 +365,9 @@ BATCH_FIT_PARAM_ATOL = 1e-7
 BATCH_FIT_METRIC_RTOL = 1e-5
 # Phases 11c-11e: the floor pins of tests/test_end_to_end.py: the boston
 # sweep's mean NMSE/floor at m=20 over seeds 0-2 (:32-57), the ensembles'
-# (:60-83) and the co2 composite's (:169-196).
+# (:60-83) and the co2 composite's (:169-196).  11c's sweep runs
+# SWEEP_TRIALS trials a size (see SMOKE_CUTS).
+SWEEP_TRIALS = 20
 SWEEP_PIN_M, SWEEP_PIN = 20, 1.35
 ENSEMBLE_PIN = 1.2
 CO2_PIN = 1.2
@@ -384,10 +402,11 @@ BAYES_CHAINS = 32
 # 0.013), at about mean + 3 sigma.  Both beat that campaign's MAP (0.0641,
 # -1.241) and ensemble (0.0499, -1.314) arms.
 FLEET_NMSE_PIN, FLEET_MNLP_PIN = 0.034, -1.56
-# 12c, the campaign's tempered budget; the second call (the persisted
-# adaptation, no probe and no warmup) samples TEMPERED_REUSE_SAMPLES more.
+# 12c, the campaign's tempered budget with its draws cut from 200 to 100
+# (see SMOKE_CUTS); the second call (the persisted adaptation, no probe
+# and no warmup) samples TEMPERED_REUSE_SAMPLES more.
 TEMPERED_KW = dict(sampler="tempered", chains=8, num_warmup=100,
-                   num_samples=200, num_integration_steps=16,
+                   num_samples=100, num_integration_steps=16,
                    init_step_size=0.003, max_rungs=12)
 TEMPERED_REUSE_SAMPLES = 30
 # 12d, cut to fit the run: static NUTS of depth 5 (32 batched gradients a
@@ -418,11 +437,12 @@ CUT_ARMS = {
 STREAM_BAYES_BLOCK = 1024
 STREAM_BAYES_CHAINS = (1, 8, BAYES_CHAINS)
 # 14b, fit_bayes over the streaming objective from the MAP, cut to fit the
-# run; pinned below the MAP arm's NMSE.  Its streaming mixture against the
+# run (10 + 10, from 20 + 20: see SMOKE_CUTS); pinned below the MAP arm's
+# NMSE.  Its streaming mixture against the
 # dense mixture of the same draws differs as update_data's posterior does
 # (the Gram summed in blocks): held at STREAM_MIX_TOL, relative (the mean to
 # its largest value, the std each).
-STREAM_FIT = dict(sampler="hmc", chains=8, num_warmup=20, num_samples=20,
+STREAM_FIT = dict(sampler="hmc", chains=8, num_warmup=10, num_samples=10,
                   num_integration_steps=16, init_step_size=0.003,
                   chain_init="map", map_iters=300,
                   streaming_block=STREAM_BAYES_BLOCK)
@@ -444,8 +464,8 @@ SGLD_CHECK_ROWS = 2 * 16384
 # posterior: 8 random-init chains, max_depth 6.  The host-looped entries
 # are the dynamic NUTS and HMC under JAX's signatures, and their parity with
 # JAX's is pinned on the CPU: here each takes 2 transitions at the initial
-# step size.
-DYNAMIC_NUTS = dict(num_warmup=30, num_samples=30, max_depth=6,
+# step size.  The dynamic NUTS at 10 + 10, from 30 + 30 (see SMOKE_CUTS).
+DYNAMIC_NUTS = dict(num_warmup=10, num_samples=10, max_depth=6,
                     init_step_size=0.003)
 HOST_NUTS = dict(DYNAMIC_NUTS, num_warmup=0, num_samples=2)
 HOST_HMC = dict(num_warmup=0, num_samples=2, num_integration_steps=16,
@@ -457,6 +477,12 @@ HOST_HMC = dict(num_warmup=0, num_samples=2, num_integration_steps=16,
 # + 10 when 15d came (a run took 1359 s on a slower host); the full budgets
 # run apart from this script.
 BENCH_HMC_ARGS = ["--warmup", "5", "--samples", "5"]
+# SMOKE_CUTS: the smoke took 1175 s of its 1200 on an H100 whose host ran
+# phase 12 in 378 s (315 in an earlier run elsewhere) once phase 17 came,
+# so these depths were cut: 11c's sweep from the driver's 50 trials to
+# SWEEP_TRIALS (its pin reads trials 0-2), 12c's tempered draws from 200 to
+# 100, 14b from 20 + 20 to 10 + 10 and 14d from 30 + 30 to 10 + 10, about
+# 120 s in all on that host.
 CAMPAIGN_ARGS = ["--tiny", "--datasets", "co2", "--seeds", "1"]
 
 
@@ -1336,9 +1362,9 @@ def batch_fit_phase(launches):
 
 def sweeps_phase(launches, workdir):
     """Phases 11c-11e: the ported drivers.  11c the boston sweep at full
-    width, 50 trials x m in {10..50}, batched; 11d the floor-closing
-    ensembles on seeds 0-2; 11e the co2 plain and composite fits, and the
-    abalone and kin8nm sweeps with --quick at full N.  Each is one path of
+    width, SWEEP_TRIALS trials x m in {10..50}, batched; 11d the
+    floor-closing ensembles on seeds 0-2; 11e the co2 plain and composite
+    fits, and the abalone and kin8nm sweeps with --quick at full N.  Each is one path of
     the launch counts and is held to the floor pins of
     tests/test_end_to_end.py."""
     from scfgp_tpu_torch import SCFGP
@@ -1351,7 +1377,8 @@ def sweeps_phase(launches, workdir):
     # 11c
     launches.start()
     t = time.perf_counter()
-    sweep = boston_housing.main(["--batched", "--out", out("boston")])
+    sweep = boston_housing.main(["--batched", "--trials", str(SWEEP_TRIALS),
+                                 "--out", out("boston")])
     t_sweep = time.perf_counter() - t
     counts = launches.read("boston_sweep")
     at = sweep["nfeats_choices"].index(SWEEP_PIN_M)
@@ -3268,6 +3295,218 @@ def precision_phase(launches, dev, workdir):
     say("precision", seconds=time.perf_counter() - t, parts_s=times)
 
 
+# Phase 17: the last ported drivers, in this process.  The three tempering
+# campaigns at the JAX width (n = 2048, S=20, M=50: P = 1163; 8 chains),
+# each at its own rung count: the probe's pooled ladder up to 48 rungs (a
+# batch of up to 384), the sweep's 12 (96), the deep ladder's 24 (192) and
+# its 64 plain chains.  Cut to fit the run, on the command line and through
+# the budgets no option sets: 8 draws a chain (the fewest whose split ESS
+# is finite), one warmup transition, a pre-warmup of 1 + 2, and 4 leapfrog
+# steps a transition in place of the campaigns' 16 (a run of 16 took 67 s
+# of the 75 on an H100).  The sweep and the deep ladder share one
+# directory, as the JAX campaigns do, so the deep ladder starts from the
+# sweep's cached pre-warmup.  Then the four boston probes at one seed,
+# their fits cut to CAMPAIGN_FIT_ITERS iterations.
+CAMPAIGN_OPTIONS = {
+    "tempering_probe": dict(samples=8, warmup=1, pre_warmup=1),
+    "tempering_sweep": dict(warmup=1, base_samples=8, big_samples=9),
+    "deep_ladder": dict(samples=8, warmup=1)}
+CAMPAIGN_HMC = dict(num_integration_steps=4, init_step_size=0.003)
+CAMPAIGN_CONSTANTS = {
+    "tempering_probe": {"PRE_SAMPLES": 2, "HMC": CAMPAIGN_HMC},
+    "tempering_sweep": {"PRE_WARMUP": 1, "HMC": CAMPAIGN_HMC},
+    "deep_ladder": {"SEG_DRAWS": 8, "HMC": CAMPAIGN_HMC}}
+CAMPAIGN_FIT_ITERS = 20
+CAMPAIGN_ENSEMBLE_MEMBERS = 4
+CAMPAIGNS_BUDGET_S = 75
+# The variants each JAX probe reports (experiments/boston_floor_probe.py:
+# 69-77, boston_floor_probe2.py:60-80, boston_floor_probe3.py:67-71,
+# boston_floor_probe4.py:62-64).
+PROBE_VARIANTS = {
+    "boston_floor_probe": ("base", "long", "restarts", "linear",
+                           "linear+rs"),
+    "boston_floor_probe2": ("best_of_5", "ens5", "ens_top3", "linear_long"),
+    "boston_floor_probe3": ("ens5_m20", "ens8_m20", "ens8_m50", "ens8_long",
+                            "ens8_ynorm"),
+    "boston_floor_probe4": ("ens8_long_ynorm", "ens16_top8", "ens8_lr005")}
+DIAGNOSTICS = ("max_rhat", "min_ess_bulk", "min_ess_tail",
+               "min_ess_bulk_per_s", "rhat_logdensity", "ess_logdensity")
+
+
+@contextlib.contextmanager
+def patched(module, **values):
+    """``module``'s constants set to ``values`` inside, restored after."""
+    saved = {k: getattr(module, k) for k in values}
+    for k, v in values.items():
+        setattr(module, k, v)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
+
+
+def report_legs(report):
+    """A campaign report's legs, a list (the sweep's) or a dict by tag
+    (the deep ladder's), as a list."""
+    legs = report.get("legs", [])
+    return list(legs.values()) if isinstance(legs, dict) else legs
+
+
+def key_sets(report):
+    """The key sets of a campaign report: its own, its config's, verdict's
+    and plain leg's where it has them, and each leg kind's (the leg of that
+    kind with most keys: the JAX runs resumed legs of older versions of
+    their drivers)."""
+    out = {"report": set(report)}
+    out.update({k: set(report[k]) for k in ("config", "verdict",
+                                             "plain_hmc_same_budget")
+                if k in report})
+    for leg in report_legs(report):
+        if len(leg) > len(out.get(leg["kind"], ())):
+            out[leg["kind"]] = set(leg)
+    return out
+
+
+def campaign_key_errors(name, report):
+    """Where ``report``'s keys, and each of its legs', differ from those of
+    the JAX campaign's committed report ``experiments/results/hmc/
+    <name>.json``."""
+    with open(os.path.join(ROOT, "experiments", "results", "hmc",
+                           name + ".json")) as f:
+        want = key_sets(json.load(f))
+    got = key_sets(report)
+    return ([k for k in set(got) | set(want) if got.get(k) != want.get(k)]
+            + [f"leg {leg['kind']}: {sorted(leg)}"
+               for leg in report_legs(report)
+               if set(leg) != want.get(leg["kind"])])
+
+
+def campaign_legs(name, report):
+    """The legs of a campaign's report by tag, each with its scored
+    fields."""
+    if name == "tempering_probe":
+        plain = "plain_hmc_same_budget"
+        return {"tempered": {k: v for k, v in report.items() if k != plain},
+                "plain": report[plain]}
+    legs = report["legs"]
+    return legs if isinstance(legs, dict) else {l["leg"]: l for l in legs}
+
+
+def campaign_argv(name):
+    """The command line of a campaign's run in phase 17."""
+    return [a for k, v in CAMPAIGN_OPTIONS[name].items()
+            for a in ("--" + k.replace("_", "-"), str(v))]
+
+
+def campaign_gradients(name, report):
+    """The batched gradients of a campaign's run in phase 17, L + 1 a
+    transition (L = CAMPAIGN_HMC's leapfrog steps): the sampling legs'
+    transitions, and the pre-warmup's where it ran (the deep ladder starts
+    from the sweep's).  Log densities without a
+    gradient (the ladders' energy scale, a tempered run's first values)
+    launch K1f only."""
+    from scfgp_tpu_torch.experiments import tempering_probe, tempering_sweep
+    opt = CAMPAIGN_OPTIONS[name]
+    pre = tempering_probe.PRE_SAMPLES
+    if name == "tempering_probe":  # the tempered call twice, plain once
+        steps = (opt["pre_warmup"] + pre
+                 + 3 * (opt["warmup"] + opt["samples"]))
+    elif name == "tempering_sweep":  # every leg twice
+        steps = tempering_sweep.PRE_WARMUP + pre + sum(
+            2 * (opt["warmup"] + leg["samples"]) for leg in report["legs"])
+    else:  # a plain leg's warmup ends in one draw
+        steps = sum(opt["warmup"] + leg["draws_per_chain"]
+                    + (leg["kind"] == "plain-many-chains")
+                    for leg in report_legs(report))
+    return steps * (CAMPAIGN_HMC["num_integration_steps"] + 1)
+
+
+def campaigns_phase(launches, workdir):
+    """Phase 17: the three tempering campaigns at full width and the four
+    boston probes at one seed, each one path of the launch counts: K1b
+    once a batched gradient, no K2, K3 or K4; each report's keys the JAX
+    driver's, every diagnostic finite, every swap rate in (0, 1], every
+    probe ratio finite; all within CAMPAIGNS_BUDGET_S."""
+    from scfgp_tpu_torch.experiments import (
+        boston_floor_probe, boston_floor_probe2, boston_floor_probe3,
+        boston_floor_probe4, deep_ladder, tempering_probe, tempering_sweep)
+    t = time.perf_counter()
+    modules = {"tempering_probe": tempering_probe,
+               "tempering_sweep": tempering_sweep,
+               "deep_ladder": deep_ladder}
+    with contextlib.ExitStack() as stack:
+        for name, values in CAMPAIGN_CONSTANTS.items():
+            stack.enter_context(patched(modules[name], **values))
+        for name, module in modules.items():
+            out = "probe" if name == "tempering_probe" else "shared"
+            launches.start()
+            t0 = time.perf_counter()
+            rep = module.main(campaign_argv(name)
+                              + ["--out", os.path.join(workdir, out)])
+            wall = time.perf_counter() - t0
+            counts = launches.read("17 " + name, none=BAYES_NONE)
+            grads = campaign_gradients(name, rep)
+            name_of = {"deep_ladder": "deep_ladder_campaign"}.get(name, name)
+            errors = campaign_key_errors(name_of, rep)
+            legs = campaign_legs(name, rep)
+            say("campaign", driver=name, seconds=wall,
+                batched_gradients=grads, launches=counts, legs=legs)
+            check(not errors, f"phase 17 {name}: keys differ from the JAX "
+                  f"report's: {errors}")
+            check(counts["phi_bwd"] == grads, f"phase 17 {name}: {grads} "
+                  f"batched gradients launched K1b {counts['phi_bwd']} "
+                  "times")
+            for tag, leg in legs.items():
+                vals = [leg[k] for k in DIAGNOSTICS if k in leg]
+                check(all(v is not None and math.isfinite(v) for v in vals),
+                      f"phase 17 {name} {tag}: a diagnostic is not "
+                      f"finite: {leg}")
+                if "swap_rate" in leg:
+                    check(0.0 < leg["swap_rate"] <= 1.0, f"phase 17 {name}"
+                          f" {tag}: swap rate {leg['swap_rate']}")
+
+    fit = dict(max_iter=CAMPAIGN_FIT_ITERS)
+    probes = (
+        (boston_floor_probe, dict(FIT=dict(boston_floor_probe.FIT, **fit),
+                                  LONG=dict(boston_floor_probe.LONG, **fit))),
+        (boston_floor_probe2, dict(FIT=dict(boston_floor_probe2.FIT, **fit),
+                                   LONG=dict(boston_floor_probe2.LONG,
+                                             **fit))),
+        (boston_floor_probe3, dict(VARIANTS=cut_ensembles(
+            boston_floor_probe3.VARIANTS))),
+        (boston_floor_probe4, dict(VARIANTS=cut_ensembles(
+            boston_floor_probe4.VARIANTS))))
+    for module, values in probes:
+        name = module.__name__.rsplit(".", 1)[1]
+        launches.start()
+        t0 = time.perf_counter()
+        with patched(module, **values):
+            rep = module.main(["--seeds", "1"])
+        wall = time.perf_counter() - t0
+        counts = launches.read("17 " + name, none=BAYES_NONE)
+        ratios = {k: v["mean_ratio"] for k, v in rep.items()}
+        say("campaign", driver=name, seconds=wall, ratios=ratios,
+            launches=counts)
+        check(tuple(rep) == PROBE_VARIANTS[name], f"phase 17 {name}: "
+              f"variants {list(rep)}, not the JAX probe's")
+        check(all(math.isfinite(r) for r in ratios.values()),
+              f"phase 17 {name}: a ratio is not finite: {ratios}")
+    seconds = time.perf_counter() - t
+    say("campaigns", seconds=seconds, budget_s=CAMPAIGNS_BUDGET_S)
+    check(seconds <= CAMPAIGNS_BUDGET_S, f"phase 17 took {seconds} s of its "
+          f"{CAMPAIGNS_BUDGET_S}")
+
+
+def cut_ensembles(variants):
+    """Probe 3's and 4's ensembles cut to CAMPAIGN_FIT_ITERS iterations and
+    at most CAMPAIGN_ENSEMBLE_MEMBERS members, mixing half of them where
+    the JAX probe mixes a top."""
+    n = CAMPAIGN_ENSEMBLE_MEMBERS
+    return {k: dict(v, max_iter=CAMPAIGN_FIT_ITERS, k=min(v["k"], n),
+                    top=v["top"] and n // 2) for k, v in variants.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3783,6 +4022,11 @@ def main():
     prec_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_precision_")
     precision_phase_apart(launches, prec_dir.name)
     prec_dir.cleanup()
+
+    # 17. the tempering campaigns and the boston probes -------------------
+    camp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_campaigns_")
+    campaigns_phase(launches, camp_dir.name)
+    camp_dir.cleanup()
 
     row554 = chol[CHOL_LIBRARY_SIZE]
     kernels = [("phi_fwd", "csrc/phi_fwd.cu", "scfgp_tpu/ops/phi.py:65",

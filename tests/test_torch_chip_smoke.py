@@ -125,11 +125,11 @@ def test_kernel_ab_refuses_to_run_without_a_card(capsys):
 def test_phase_14_keeps_its_shapes_and_budgets():
     """Phase 14: the streaming log posterior at the campaign's kin8nm width
     in blocks of 1024 (7 of the 6553 rows, the last ragged) at 1, 8 and
-    32 chains; fit_bayes(hmc) streaming from the MAP at 20 + 20;
+    32 chains; fit_bayes(hmc) streaming from the MAP at 10 + 10;
     sgld_scale's ULA leg cut to 5 + 15 (its pSGLD legs at the JAX budgets,
     the driver's defaults), and each leg's estimator on two 16384-row
-    blocks of its data; the dynamic NUTS at 8 chains, max_depth 6, 30 +
-    30, the host-looped NUTS and HMC 2 transitions each; bench_hmc at 5 +
+    blocks of its data; the dynamic NUTS at 8 chains, max_depth 6, 10 +
+    10, the host-looped NUTS and HMC 2 transitions each; bench_hmc at 5 +
     5; the campaign --tiny on co2, seed 0, every arm."""
     from scfgp_tpu_torch.experiments import bayes_predictive, sgld_scale
     assert chip_smoke.BAYES_MODEL == dict(sparsity=20, nfeats=50)
@@ -139,11 +139,11 @@ def test_phase_14_keeps_its_shapes_and_budgets():
     fit = chip_smoke.STREAM_FIT
     assert (fit["sampler"], fit["chain_init"], fit["streaming_block"],
             fit["num_warmup"], fit["num_samples"]) == ("hmc", "map", 1024,
-                                                       20, 20)
+                                                       10, 10)
     assert chip_smoke.ULA_ARGS == ["--warmup", "5", "--samples", "15"]
     assert sgld_scale.BATCHES == (4096, 16384)
     assert chip_smoke.SGLD_CHECK_ROWS == 2 * 16384
-    assert chip_smoke.DYNAMIC_NUTS == dict(num_warmup=30, num_samples=30,
+    assert chip_smoke.DYNAMIC_NUTS == dict(num_warmup=10, num_samples=10,
                                            max_depth=6, init_step_size=0.003)
     assert chip_smoke.HOST_NUTS == dict(chip_smoke.DYNAMIC_NUTS,
                                         num_warmup=0, num_samples=2)
@@ -336,3 +336,94 @@ def test_phase_15c_holds_every_kernels_count(monkeypatch, tmp_path):
     with pytest.raises(AssertionError, match="every kernel"):
         launches = chip_smoke.Launches(**{k: _Wrapper() for k in KERNELS})
         launches.record("a path", dict(phi_fwd=1, phi_bwd=1))
+
+
+def test_phase_17_keeps_its_widths_and_budgets(monkeypatch, capsys):
+    """Phase 17: the three tempering campaigns at the JAX width (the
+    drivers' defaults: n = 2048, S=20, M=50, dimension 1163, 8 chains; the
+    deep ladder's 24 rungs and 64 plain chains, phase 11a's ``ladder`` and
+    ``fleet64`` batches), 8 draws or more a chain, one warmup transition,
+    the pre-warmups cut to 1 + 2, 4 leapfrog steps a transition; the four
+    boston probes at one seed, 20 iterations a fit and 4 members an
+    ensemble; 75 s in all.  The gradients it counts: L + 1 = 5 a
+    transition of every leg and pre-warmup that runs, the deep ladder on
+    the sweep's cached pre-warmup."""
+    from scfgp_tpu_torch.bayes import reduced_dim
+    from scfgp_tpu_torch.experiments import (deep_ladder, tempering_probe,
+                                             tempering_sweep)
+    from test_torch_boston_probes import _jax_probe_keys
+    batch = {row[0]: tuple(row[1:]) for row in chip_smoke.BATCH_SHAPES}
+    assert batch["ladder"] == (192, 2048, 8, 50)
+    assert batch["fleet64"] == (64, 2048, 8, 50)
+    for kernel in ("phi_fwd", "phi_bwd"):
+        for name in ("batch-ladder", "batch-fleet64"):
+            assert name in chip_smoke.KERNELS_LINE_SHAPES[kernel]
+    opts = chip_smoke.CAMPAIGN_OPTIONS
+    assert opts == {
+        "tempering_probe": dict(samples=8, warmup=1, pre_warmup=1),
+        "tempering_sweep": dict(warmup=1, base_samples=8, big_samples=9),
+        "deep_ladder": dict(samples=8, warmup=1)}
+    modules = {"tempering_probe": tempering_probe,
+               "tempering_sweep": tempering_sweep,
+               "deep_ladder": deep_ladder}
+    for name, module in modules.items():
+        args = module.parse(chip_smoke.campaign_argv(name))
+        assert (args.n, args.sparsity, args.nfeats, args.chains, args.cpu) \
+            == (2048, 20, 50, 8, False)
+        assert reduced_dim(8, args.sparsity, args.nfeats) == 1163
+        assert module.HMC == dict(num_integration_steps=16,
+                                  init_step_size=0.003)
+    ladder = deep_ladder.parse(chip_smoke.campaign_argv("deep_ladder"))
+    assert ladder.rungs * ladder.chains == 192 and ladder.plain_chains == 64
+    assert tempering_sweep.parse([]).max_rungs * 8 == 96
+    assert tempering_probe.parse([]).max_rungs * 8 == 384
+    hmc = dict(num_integration_steps=4, init_step_size=0.003)
+    assert chip_smoke.CAMPAIGN_CONSTANTS == {
+        "tempering_probe": {"PRE_SAMPLES": 2, "HMC": hmc},
+        "tempering_sweep": {"PRE_WARMUP": 1, "HMC": hmc},
+        "deep_ladder": {"SEG_DRAWS": 8, "HMC": hmc}}
+    assert (chip_smoke.CAMPAIGN_FIT_ITERS,
+            chip_smoke.CAMPAIGN_ENSEMBLE_MEMBERS,
+            chip_smoke.CAMPAIGNS_BUDGET_S) == (20, 4, 75)
+    for name, variants in chip_smoke.PROBE_VARIANTS.items():
+        assert set(variants) == _jax_probe_keys(name, monkeypatch, capsys)
+    with contextlib.ExitStack() as stack:
+        for name, values in chip_smoke.CAMPAIGN_CONSTANTS.items():
+            stack.enter_context(chip_smoke.patched(modules[name], **values))
+        assert chip_smoke.campaign_gradients("tempering_probe", {}) == (
+            1 + 2 + 3 * (1 + 8)) * 5
+        legs = [{"samples": n} for n in (8, 8, 8, 9, 9)]
+        assert chip_smoke.campaign_gradients(
+            "tempering_sweep", {"legs": legs}) == (
+            1 + 2 + 2 * (9 + 9 + 9 + 10 + 10)) * 5
+        legs = {"t": {"kind": "tempered", "draws_per_chain": 8},
+                "p": {"kind": "plain-many-chains", "draws_per_chain": 16},
+                "f": {"kind": "plain-many-chains", "draws_per_chain": 8}}
+        assert chip_smoke.campaign_gradients(
+            "deep_ladder", {"legs": legs}) == (9 + 18 + 10) * 5
+    assert tempering_probe.PRE_SAMPLES == 16
+    assert tempering_sweep.PRE_WARMUP == 100 and deep_ladder.SEG_DRAWS == 200
+
+
+def test_phase_17_key_check_reads_the_jax_reports():
+    """Phase 17's key check: the JAX probe's own report passes, one key
+    missing from it or from a leg fails, and the sweep's report from the
+    JAX run that resumed a leg of an older driver fails on that leg."""
+    import json
+    hmc = os.path.join(ROOT, "experiments", "results", "hmc")
+
+    def report(name):
+        with open(os.path.join(hmc, name + ".json")) as f:
+            return json.load(f)
+    probe = report("tempering_probe")
+    assert chip_smoke.campaign_key_errors("tempering_probe", probe) == []
+    del probe["plain_hmc_same_budget"]["min_ess_bulk"]
+    assert chip_smoke.campaign_key_errors("tempering_probe", probe) == [
+        "plain_hmc_same_budget"]
+    sweep = report("tempering_sweep")
+    errors = chip_smoke.campaign_key_errors("tempering_sweep", sweep)
+    assert len(errors) == 1 and errors[0].startswith("leg plain")
+    ladder = report("deep_ladder_campaign")
+    del ladder["legs"]["tempered-24r-b0.3-2000"]["swap_rate"]
+    assert "tempered" in chip_smoke.campaign_key_errors(
+        "deep_ladder_campaign", ladder)

@@ -310,7 +310,8 @@ def test_sgld_scale_driver_runs_its_legs_on_the_cpu(tmp_path, monkeypatch):
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():
     """The streaming Bayes path, the precision policy, chain-sharded
-    sampling and the new drivers, in a fresh process."""
+    sampling and the new drivers (the floor drivers, the boston probes and
+    the tempering campaigns), in a fresh process."""
     code = ("import sys, scfgp_tpu_torch.bayes, scfgp_tpu_torch.bayes.nuts,"
             " scfgp_tpu_torch.ops.streaming,"
             " scfgp_tpu_torch.experiments.bayes_predictive,"
@@ -325,7 +326,14 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
             " scfgp_tpu_torch.experiments.floor_oracle,"
             " scfgp_tpu_torch.experiments.mnlp_floor,"
             " scfgp_tpu_torch.experiments.kin8nm_floor,"
-            " scfgp_tpu_torch.experiments.bf16_accuracy_sweep;"
+            " scfgp_tpu_torch.experiments.bf16_accuracy_sweep,"
+            " scfgp_tpu_torch.experiments.boston_floor_probe,"
+            " scfgp_tpu_torch.experiments.boston_floor_probe2,"
+            " scfgp_tpu_torch.experiments.boston_floor_probe3,"
+            " scfgp_tpu_torch.experiments.boston_floor_probe4,"
+            " scfgp_tpu_torch.experiments.tempering_probe,"
+            " scfgp_tpu_torch.experiments.tempering_sweep,"
+            " scfgp_tpu_torch.experiments.deep_ladder;"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'scfgp_tpu' or "
             "m.startswith('scfgp_tpu.')];"

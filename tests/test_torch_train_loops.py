@@ -231,3 +231,32 @@ def test_fused_resume_requires_state():
     m.set_data(Xt, yt)
     with pytest.raises(ValueError, match="resume"):
         m.optimize_fused(resume=True)
+
+
+def test_fit_fast_cost_history_equals_jax_in_float64_without_annealing():
+    """kin8nm's IEEE trials split between the packages only through the
+    fused loop's stall annealing, whose uniform each package draws from its
+    own generator: from the same θ in float64, with the annealing held off
+    (max_cvrg above max_iter), the port's fit_fast cost history is the JAX
+    package's over 40 iterations at rtol 1e-9 (at the quality run's width,
+    M=212, they agree to 3e-13), and so are the final metrics."""
+    from scfgp_tpu.data.datasets import load_kin8nm
+    Xt, yt, Xv, yv, _ = load_kin8nm(seed=2)
+    Xt, yt, Xv, yv = Xt[:800], yt[:800], Xv[:300], yv[:300]
+    kw = dict(obj="SCORE", max_iter=40, cvrg_tol=1e-5, max_cvrg=1000)
+    theta = [np.asarray(a) for a in init_params(jax.random.PRNGKey(2), 8, 8,
+                                                12, jnp.float64)]
+    mj = JaxSCFGP(sparsity=-1, nfeats=12, seed=2, dtype=jnp.float64,
+                  mm_precision=None)
+    mj.params = JaxParams(*[jnp.asarray(a) for a in theta])
+    mj.fit_fast(Xt, yt, Xv, yv, **kw)
+    mt = SCFGP(sparsity=-1, nfeats=12, seed=2, dtype=torch.float64,
+               mm_precision=None, device="cpu")
+    mt.params = params_from_numpy(theta, dtype=torch.float64)
+    mt.fit_fast(Xt, yt, Xv, yv, **kw)
+    cost_j = np.asarray(mj.evals["COST"][1])
+    assert len(cost_j) == len(mt.evals["COST"][1]) == 40
+    np.testing.assert_allclose(mt.evals["COST"][1], cost_j, rtol=1e-9)
+    for metric in ("NMSE", "MNLP"):
+        np.testing.assert_allclose(mt.evals[metric][1][-1],
+                                   mj.evals[metric][1][-1], rtol=1e-9)
