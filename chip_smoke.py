@@ -64,7 +64,7 @@ Phases, one JSON line each (any failure raises and exits non-zero):
 10b. the served kin8nm model's posterior (2K = 554, 6553 rows) rebuilt
    through K3 and held against ``solve_posterior`` (torch's pair);
 11. batched sweeps and ensembles (BATCH_SHAPES and below): 11a K1f and K1b
-   with a trial axis (up to the deep ladder's 192 trials of phase 17),
+   with a trial axis (up to the tempering probe's 384 trials of phase 17),
    each trial bitwise its 2-D call, with the device
    times of the batched launch, of B 2-D launches and of the plain batched
    version; 11b ``fit_fast_batch`` of 10 boston trials against sequential
@@ -301,12 +301,14 @@ K2_SHAPES = [("kin8nm", 6553, 8, 277, False), ("bench", 8192, 8, 250, False),
 KERNELS_LINE_SHAPES = {"phi_fwd": ("block", "kin8nm", "bench",
                                    "batch-boston", "batch-kin8nm",
                                    "batch-d256", "batch-bayes",
-                                   "batch-tempered", "batch-ladder",
+                                   "batch-tempered", "batch-sweep",
+                                   "batch-ladder", "batch-probe",
                                    "batch-fleet64"),
                        "phi_bwd": ("block", "kin8nm", "bench",
                                    "batch-boston", "batch-kin8nm",
                                    "batch-d256", "batch-bayes",
-                                   "batch-tempered", "batch-ladder",
+                                   "batch-tempered", "batch-sweep",
+                                   "batch-ladder", "batch-probe",
                                    "batch-fleet64"),
                        "gram_fwd": ("block", "kin8nm"),
                        "gram_bwd": ("block", "kin8nm")}
@@ -334,12 +336,20 @@ STREAM_PEAK_EXTRA = 64 << 20
 # D=256, where both kernels take their wide design; and the 32 chains of
 # phase 12's fleet at the Bayes width (S=20, M=50: K=50), and the 96
 # trials (8 chains x 12 rungs) of phase 12c's tempering at that width; and
-# the tempering campaigns' batches on their 2048 rows (phase 17): the deep
-# ladder's 192 (8 chains x 24 rungs) and its 64 plain chains.
+# the tempering campaigns' batches on their 2048 rows (phase 17): the
+# sweep's 96 (8 chains x 12 rungs), the deep ladder's 192 (x 24) and its 64
+# plain chains, and the probe's pooled ladder at its cap of 48 rungs (384),
+# which phase 17's probe reaches.
 BATCH_SHAPES = [("boston", 50, 455, 13, 70), ("kin8nm", 8, 6553, 8, 277),
                 ("d256", 4, 4096, 256, 500), ("bayes", 32, 6553, 8, 50),
-                ("tempered", 96, 6553, 8, 50), ("ladder", 192, 2048, 8, 50),
+                ("tempered", 96, 6553, 8, 50), ("sweep", 96, 2048, 8, 50),
+                ("ladder", 192, 2048, 8, 50), ("probe", 384, 2048, 8, 50),
                 ("fleet64", 64, 2048, 8, 50)]
+# The most 2-D calls one timed window of 11a's loop enqueues: two passes
+# of B calls, one at B = 384.  Two passes there are 1536 launches of K1b
+# (a partial and a reduce kernel a call), which fill CUDA's queue of
+# pending launches, so the host's enqueue cannot hide behind the sleep.
+TWO_D_CALLS = 384
 # Phase 11b: the trials of fit_fast_batch against sequential fit_fast.  In
 # float64 (the plain feature map on the card) they are held at the JAX
 # package's tolerances (tests/test_batch_fit.py:49-72): equal iteration
@@ -1182,6 +1192,7 @@ def batched_kernels_phase(dev, rng):
 
     rows = {"k1f": {}, "k1b": {}}
     for name, B, n, d, k in BATCH_SHAPES:
+        two_d_inner = max(1, min(2, TWO_D_CALLS // B))
         X, F, p, s, g = (torch.as_tensor(a, dtype=torch.float32, device=dev)
                          for a in (rng.rand(B, n, d), 3.0 * rng.randn(B, d, k),
                                    rng.uniform(0, 2 * np.pi, (B, k)),
@@ -1214,11 +1225,12 @@ def batched_kernels_phase(dev, rng):
                 within_tol=bool(np.all(np.asarray(err) <= np.asarray(tol))),
                 ms=median_ms(lambda: kern(*args), reps=11, inner=5,
                              hide_host=True),
-                two_d_ms=median_ms(loop, reps=5, inner=2, hide_host=True),
+                two_d_ms=median_ms(loop, reps=5, inner=two_d_inner,
+                                   hide_host=True),
                 plain_ms=median_ms(lambda: plain(*args), reps=11, inner=5,
                                    hide_host=True),
                 call_ms=median_ms(lambda: kern(*args), reps=11, inner=5),
-                two_d_call_ms=median_ms(loop, reps=5, inner=2))
+                two_d_call_ms=median_ms(loop, reps=5, inner=two_d_inner))
             rows[phase][name] = row
             say(f"{phase}_batched", shape=name, **row)
             check(row["per_trial_bitwise"], f"batched {phase} at {name}: a "

@@ -70,14 +70,19 @@ def start(argv, doc, seeds):
     return args, device
 
 
-def fit_one(Xt, yt, Xv, yv, seed, device, basis=None, **budget):
-    """One fit_fast at the boston config: (validation NMSE, SCORE) of the
-    best params."""
-    budget = {**FIT, **budget}
+def fit_model(Xt, yt, Xv, yv, seed, device, basis=None, **budget):
+    """One fit_fast at the boston config (FIT unless ``budget`` says
+    otherwise); returns the fitted model."""
     m = SCFGP(sparsity=20, nfeats=20, seed=seed, extra_basis=basis,
               device=device)
     m.fit_fast(Xt, yt, Xv, yv, obj="SCORE", algo=ADAM, cvrg_tol=1e-5,
-               **budget)
+               **{**FIT, **budget})
+    return m
+
+
+def fit_one(*args, **kw):
+    """``fit_model``'s (validation NMSE, SCORE) of the best params."""
+    m = fit_model(*args, **kw)
     return (float(m.evals["NMSE"][1][m.min_obj_ind]),
             float(m.evals["SCORE"][1][m.min_obj_ind]))
 

@@ -20,22 +20,13 @@ Prints as ``boston_floor_probe``; writes no file.  On the card unless
 
 import numpy as np
 
-from ..models.model import SCFGP
-from .boston_floor_probe import FIT, LONG, nmse, split, start, summary
-from .boston_housing import ADAM, linear_basis
+from .boston_floor_probe import (FIT, LONG, fit_model, nmse, split, start,
+                                 summary)
+from .boston_housing import linear_basis
 
 # The JAX probe's budgets (experiments/boston_floor_probe2.py:38-76).
 RESTARTS = 5
 TOP = 3
-
-
-def fit_model(Xt, yt, Xv, yv, seed, device, **budget):
-    budget = {**FIT, **budget}
-    m = SCFGP(sparsity=20, nfeats=20, seed=seed, extra_basis=linear_basis,
-              device=device)
-    m.fit_fast(Xt, yt, Xv, yv, obj="SCORE", algo=ADAM, cvrg_tol=1e-5,
-               **budget)
-    return m
 
 
 def main(argv=None) -> dict:
@@ -44,7 +35,8 @@ def main(argv=None) -> dict:
     for seed in range(args.seeds):
         Xt, yt, Xv, yv, floor = split(seed)
         data = (Xt, yt, Xv, yv)
-        models = [fit_model(*data, 100 * seed + k, device)
+        models = [fit_model(*data, 100 * seed + k, device,
+                            basis=linear_basis, **FIT)
                   for k in range(RESTARTS)]
         mus = [np.reshape(m.predict(Xv)[0], -1) for m in models]
         nmses = [nmse(mu, yv) for mu in mus]
@@ -55,7 +47,7 @@ def main(argv=None) -> dict:
         order = np.argsort(nmses)
         out.setdefault("ens_top3", []).append(
             nmse(np.mean([mus[i] for i in order[:TOP]], axis=0), yv) / floor)
-        m = fit_model(*data, seed, device, **LONG)
+        m = fit_model(*data, seed, device, basis=linear_basis, **LONG)
         out.setdefault("linear_long", []).append(
             nmse(m.predict(Xv)[0], yv) / floor)
 

@@ -3,31 +3,50 @@ CPU at cut budgets.
 
 ``scfgp_tpu_torch/experiments/boston_floor_probe{,2,3,4}.py``, each run
 once with ``--cpu --seeds 1`` and the budgets no option sets cut by
-patching the module's constants (``FIT``, ``LONG``, ``VARIANTS``): at the
-JAX budgets the four take several minutes of CPU time.
+patching the module's constants (``FIT``, ``LONG``, ``VARIANTS``); the JAX
+probe ``experiments/boston_floor_probe{,2,3,4}.py`` runs through its own
+``main`` on the same split at the same budgets, its fit functions wrapped
+to take them.  At the JAX budgets the four take several minutes of CPU
+time.
+
+Both packages run in float64 with the stall annealing held off
+(``max_cvrg`` twice ``max_iter``), and each port model starts from the θ
+that the JAX package draws for the same seed (``_jax_theta``): the
+annealing's uniform comes from each package's own generator, so it and a
+package's own init would each split the trials.  So each ratio is
+deterministic and must equal the JAX probe's: a restart seed, a member's
+order, the basis, the target's scaling or the learning rate passed wrong
+shows as a ratio that differs.
 
 Exact: each report's variants are those the JAX probe reports (its own
 ``main`` run with its fits replaced by stubs, so its keys come from its
-code), and the floor each ratio divides by is the JAX package's
-``surrogate_floor`` on the same split, to 1e-12.  In law: every ratio
-finite and within 10% of this driver's reading at the cut budgets, stated
-beside each check (the JAX probes' readings at their own budgets are in
-their docstrings: ~1.3 the experiment's config, ~1.06-1.17 the ensembles).
+code), the floor each ratio divides by is the JAX package's
+``surrogate_floor`` on the same split, to 1e-12, and each ratio is the JAX
+probe's to RATIO_RTOL.
 """
 
+import functools
+import io
 import json
 import sys
+from contextlib import redirect_stdout
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from scfgp_tpu import SCFGP as JaxSCFGP
 from scfgp_tpu.data import datasets as jds
+from scfgp_tpu.models.params import init_params as jax_init_params
 from test_torch_sampling_campaigns import _defaults, _jax_driver
 from scfgp_tpu_torch.experiments import (boston_floor_probe,
                                          boston_floor_probe2,
                                          boston_floor_probe3,
                                          boston_floor_probe4)
+from scfgp_tpu_torch.models import model as torch_model
+from scfgp_tpu_torch.models.params import params_from_numpy
 
 torch.set_num_threads(1)
 
@@ -36,16 +55,63 @@ PROBES = {"boston_floor_probe": boston_floor_probe,
           "boston_floor_probe3": boston_floor_probe3,
           "boston_floor_probe4": boston_floor_probe4}
 
+# The cut budgets: 30 iterations a fit (60 the long ones), ensembles of at
+# most 3 (probe 3) and 4 (probe 4) members mixing half of them where the
+# probe mixes a top; max_cvrg at twice max_iter, so no stall annealing.
+FIT = dict(max_iter=30, max_cvrg=60)
+LONG = dict(max_iter=60, max_cvrg=120)
+MEMBERS = {"boston_floor_probe3": 3, "boston_floor_probe4": 4}
+# Each ratio against the JAX probe's: the two float64 fits from one θ
+# agree to ~1e-9 in cost (tests/test_torch_train_loops.py); the ratios
+# here to ~5e-13.
+RATIO_RTOL = 1e-9
+
 
 def _cut(variants, members):
-    return {k: dict(v, max_iter=30, k=min(v["k"], members),
-                    top=v["top"] and members // 2)
+    return {k: dict(v, max_iter=FIT["max_iter"], max_cvrg=FIT["max_cvrg"],
+                    k=min(v["k"], members), top=v["top"] and members // 2)
             for k, v in variants.items()}
+
+
+def _jax_theta(generator, D, S, M, dtype=torch.float32, device="cpu"):
+    """The port's ``init_params`` in the JAX package's draw: the θ that
+    ``jax.random.PRNGKey`` of the generator's seed gives."""
+    jdtype = {torch.float64: jnp.float64, torch.float32: jnp.float32}[dtype]
+    theta = jax_init_params(jax.random.PRNGKey(generator.initial_seed()), D,
+                            S, M, jdtype)
+    return params_from_numpy([np.asarray(a) for a in theta], dtype=dtype,
+                             device=device)
+
+
+def _jax_cut(probe, name):
+    """The JAX probe's fit functions wrapped to take the cut budgets, its
+    models in float64 and IEEE."""
+    def fit(fn):
+        def cut(*a, max_iter=500, max_cvrg=18, **kw):
+            return fn(*a, **(LONG if max_iter == 2000 else FIT), **kw)
+        return cut
+
+    def ens(fn):
+        members = MEMBERS[name]
+
+        def cut(*a, k=5, top=None, max_iter=500, max_cvrg=18, **kw):
+            if top:
+                kw["top"] = members // 2
+            return fn(*a, k=min(k, members), **FIT, **kw)
+        return cut
+
+    wraps = {"fit_one": fit, "fit_model": fit, "ens_nmse": ens, "ens": ens}
+    out = {fn: wrap(getattr(probe, fn)) for fn, wrap in wraps.items()
+           if hasattr(probe, fn)}
+    out["SCFGP"] = functools.partial(JaxSCFGP, dtype=jnp.float64,
+                                     mm_precision=None)
+    return out
 
 
 @pytest.fixture(scope="module")
 def reports():
-    """Each probe's report, and the floors its ratios were divided by."""
+    """Each probe's report, the floors its ratios were divided by, and the
+    JAX probe's report at the same budgets."""
     floors, out = [], {}
     split = boston_floor_probe.split
 
@@ -55,25 +121,35 @@ def reports():
         return data
 
     budgets = {
-        "boston_floor_probe": dict(FIT=dict(max_iter=30, max_cvrg=18),
-                                   LONG=dict(max_iter=60, max_cvrg=60)),
-        "boston_floor_probe2": dict(FIT=dict(max_iter=30, max_cvrg=18),
-                                    LONG=dict(max_iter=60, max_cvrg=60)),
+        "boston_floor_probe": dict(FIT=FIT, LONG=LONG),
+        "boston_floor_probe2": dict(FIT=FIT, LONG=LONG),
         "boston_floor_probe3": dict(VARIANTS=_cut(
-            boston_floor_probe3.VARIANTS, 3)),
+            boston_floor_probe3.VARIANTS, MEMBERS["boston_floor_probe3"])),
         "boston_floor_probe4": dict(VARIANTS=_cut(
-            boston_floor_probe4.VARIANTS, 4)),
+            boston_floor_probe4.VARIANTS, MEMBERS["boston_floor_probe4"])),
     }
+    f64 = functools.partial(torch_model.SCFGP, dtype=torch.float64)
     with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch_model, "init_params", _jax_theta)
         for name in ("boston_floor_probe", "boston_floor_probe2",
                      "boston_floor_probe3"):
             mp.setattr(PROBES[name], "split", recorded)
+        for name in ("boston_floor_probe", "boston_floor_probe3"):
+            mp.setattr(PROBES[name], "SCFGP", f64)
         for name, module in PROBES.items():
             for const, value in budgets[name].items():
                 mp.setattr(module, const, value)
             out[name] = module.main(["--cpu", "--seeds", "1"])
             out[name + "_floors"] = list(floors)
             floors.clear()
+            probe = _jax_driver(name)
+            for fn, value in _jax_cut(probe, name).items():
+                mp.setattr(probe, fn, value)
+            mp.setattr(sys, "argv", [name, "--seeds", "1"])
+            with redirect_stdout(io.StringIO()) as text:
+                probe.main()
+            text = text.getvalue()
+            out[name + "_jax"] = json.loads(text[text.rindex("\n{") + 1:])
     return out
 
 
@@ -128,30 +204,17 @@ def test_floor_equals_jax(reports, name):
     np.testing.assert_array_equal(yv_t, yv)
 
 
-# Ratios read here at the cut budgets (seed 0, one torch thread): 30
-# iterations a fit (60 the long ones), ensembles of at most 3 (probe 3) and
-# 4 (probe 4) members mixing half of them where the JAX probe mixes a top.
-READINGS = {
-    "boston_floor_probe": {"base": 1.256, "long": 1.233, "restarts": 1.165,
-                           "linear": 1.181, "linear+rs": 1.136},
-    "boston_floor_probe2": {"best_of_5": 1.136, "ens5": 1.081,
-                            "ens_top3": 1.040, "linear_long": 1.241},
-    "boston_floor_probe3": {"ens5_m20": 1.128, "ens8_m20": 1.128,
-                            "ens8_m50": 1.129, "ens8_long": 1.185,
-                            "ens8_ynorm": 1.131},
-    "boston_floor_probe4": {"ens8_long_ynorm": 1.054, "ens16_top8": 1.067,
-                            "ens8_lr005": 1.032},
-}
-
-
 @pytest.mark.parametrize("name", list(PROBES))
 def test_ratios_in_law(reports, name):
-    """Each ratio finite and within 10% of its reading above."""
+    """Each ratio finite and the JAX probe's on the same split, θ and
+    budgets, to RATIO_RTOL."""
+    want = reports[name + "_jax"]
+    assert list(reports[name]) == list(want)
     for variant, row in reports[name].items():
         ratio = row["mean_ratio"]
         assert np.isfinite(ratio), variant
-        assert abs(ratio / READINGS[name][variant] - 1) <= 0.10, (variant,
-                                                                   ratio)
+        np.testing.assert_allclose(ratio, want[variant]["mean_ratio"],
+                                   rtol=RATIO_RTOL, err_msg=variant)
 
 
 @pytest.mark.parametrize("name", list(PROBES))

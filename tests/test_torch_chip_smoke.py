@@ -341,8 +341,9 @@ def test_phase_15c_holds_every_kernels_count(monkeypatch, tmp_path):
 def test_phase_17_keeps_its_widths_and_budgets(monkeypatch, capsys):
     """Phase 17: the three tempering campaigns at the JAX width (the
     drivers' defaults: n = 2048, S=20, M=50, dimension 1163, 8 chains; the
-    deep ladder's 24 rungs and 64 plain chains, phase 11a's ``ladder`` and
-    ``fleet64`` batches), 8 draws or more a chain, one warmup transition,
+    sweep's 12 rungs, the deep ladder's 24 and 64 plain chains and the
+    probe's cap of 48 rungs, phase 11a's ``sweep``, ``ladder``, ``fleet64``
+    and ``probe`` batches), 8 draws or more a chain, one warmup transition,
     the pre-warmups cut to 1 + 2, 4 leapfrog steps a transition; the four
     boston probes at one seed, 20 iterations a fit and 4 members an
     ensemble; 75 s in all.  The gradients it counts: L + 1 = 5 a
@@ -353,10 +354,13 @@ def test_phase_17_keeps_its_widths_and_budgets(monkeypatch, capsys):
                                              tempering_sweep)
     from test_torch_boston_probes import _jax_probe_keys
     batch = {row[0]: tuple(row[1:]) for row in chip_smoke.BATCH_SHAPES}
+    assert batch["sweep"] == (96, 2048, 8, 50)
     assert batch["ladder"] == (192, 2048, 8, 50)
+    assert batch["probe"] == (384, 2048, 8, 50)
     assert batch["fleet64"] == (64, 2048, 8, 50)
     for kernel in ("phi_fwd", "phi_bwd"):
-        for name in ("batch-ladder", "batch-fleet64"):
+        for name in ("batch-sweep", "batch-ladder", "batch-probe",
+                     "batch-fleet64"):
             assert name in chip_smoke.KERNELS_LINE_SHAPES[kernel]
     opts = chip_smoke.CAMPAIGN_OPTIONS
     assert opts == {
@@ -375,8 +379,8 @@ def test_phase_17_keeps_its_widths_and_budgets(monkeypatch, capsys):
                                   init_step_size=0.003)
     ladder = deep_ladder.parse(chip_smoke.campaign_argv("deep_ladder"))
     assert ladder.rungs * ladder.chains == 192 and ladder.plain_chains == 64
-    assert tempering_sweep.parse([]).max_rungs * 8 == 96
-    assert tempering_probe.parse([]).max_rungs * 8 == 384
+    assert tempering_sweep.parse([]).max_rungs * 8 == batch["sweep"][0]
+    assert tempering_probe.parse([]).max_rungs * 8 == batch["probe"][0]
     hmc = dict(num_integration_steps=4, init_step_size=0.003)
     assert chip_smoke.CAMPAIGN_CONSTANTS == {
         "tempering_probe": {"PRE_SAMPLES": 2, "HMC": hmc},
