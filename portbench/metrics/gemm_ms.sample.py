@@ -1,0 +1,2 @@
+"""Device ms a draw in cuBLAS GEMM kernels (the objective's products)."""
+from portbench.readers import gemm_ms as read  # noqa: F401

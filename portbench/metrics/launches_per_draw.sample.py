@@ -1,0 +1,2 @@
+"""Device kernels a draw in the traced stretch."""
+from portbench.readers import launches as read  # noqa: F401
