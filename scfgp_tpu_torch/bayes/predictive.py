@@ -34,6 +34,7 @@ import torch
 from ..models.objective import loss_fn, predict_f, softplus
 from ..models.params import reduced_dim, unpack_params
 from ..ops.streaming import loss_fn_streaming, streaming_posterior
+from ..utils.profiling import span
 
 
 class _Data:
@@ -118,10 +119,13 @@ def batched_value_and_grad(logdensity_fn):
     share nothing; both outputs are detached."""
 
     def value_and_grad(q):
-        q = q.detach().requires_grad_()
-        with torch.enable_grad():
-            ld = logdensity_fn(q)
-            g, = torch.autograd.grad(ld.sum(), q)
+        with span("scfgp.grad"):
+            q = q.detach().requires_grad_()
+            with torch.enable_grad():
+                with span("scfgp.grad.forward"):
+                    ld = logdensity_fn(q)
+                with span("scfgp.grad.backward"):
+                    g, = torch.autograd.grad(ld.sum(), q)
         return ld.detach(), g
 
     return value_and_grad

@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..ops.collectives import all_reduce_sum
+from ..utils.profiling import span
 from .hmc import all_chains, as_draws
 from .predictive import batched_value_and_grad, make_logposterior
 
@@ -111,25 +112,28 @@ def sgld_sample(value_and_grad_fn: Callable, init_positions: torch.Tensor,
         q, v, t, bad = carry
         rows = (draws.randint(value_and_grad_fn.n, (batch,)) if batch
                 else None)
-        vals, grads = value_and_grad_fn(q, rows)
-        if use_pre:
-            # One metric for all chains, from the chains whose gradient is
-            # finite: a diverging chain must not poison it for the rest.
-            g_ok = torch.all(torch.isfinite(grads), dim=1)
-            g2 = torch.where(g_ok[:, None], grads * grads,
-                             torch.zeros_like(grads))
-            g2, ok = all_chains(g2, axis_name), all_chains(g_ok.to(dtype),
-                                                           axis_name)
-            n_ok = torch.sum(ok)
-            v_upd = alpha * v + (1.0 - alpha) * (
-                torch.sum(g2, dim=0) / torch.clamp(n_ok, min=1.0))
-            v = torch.where(n_ok > 0, v_upd, v)
-        g = precond_of(v)[None, :]
-        eps = step_size * (1.0 + t) ** (-step_decay)
-        noise = draws.normal(q.shape)
-        q_new = q + 0.5 * eps * g * grads + torch.sqrt(eps * g) * noise
-        ok = torch.all(torch.isfinite(q_new), dim=1)
-        q = torch.where(ok[:, None], q_new, q)
+        with span("scfgp.sgld.gradient"):
+            vals, grads = value_and_grad_fn(q, rows)
+        with span("scfgp.sgld.update"):
+            if use_pre:
+                # One metric for all chains, from the chains whose gradient
+                # is finite: a diverging chain must not poison it for the
+                # rest.
+                g_ok = torch.all(torch.isfinite(grads), dim=1)
+                g2 = torch.where(g_ok[:, None], grads * grads,
+                                 torch.zeros_like(grads))
+                g2, ok = all_chains(g2, axis_name), all_chains(
+                    g_ok.to(dtype), axis_name)
+                n_ok = torch.sum(ok)
+                v_upd = alpha * v + (1.0 - alpha) * (
+                    torch.sum(g2, dim=0) / torch.clamp(n_ok, min=1.0))
+                v = torch.where(n_ok > 0, v_upd, v)
+            g = precond_of(v)[None, :]
+            eps = step_size * (1.0 + t) ** (-step_decay)
+            noise = draws.normal(q.shape)
+            q_new = q + 0.5 * eps * g * grads + torch.sqrt(eps * g) * noise
+            ok = torch.all(torch.isfinite(q_new), dim=1)
+            q = torch.where(ok[:, None], q_new, q)
         return (q, v, t + 1.0, bad + torch.sum(~ok)), vals, eps
 
     if init_carry is not None:

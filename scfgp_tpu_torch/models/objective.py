@@ -55,6 +55,7 @@ from ..ops.cholesky import chol_inverse_bwd, cholesky_inverse_ref
 from ..ops.collectives import all_reduce_sum, axis_size, psum
 from ..ops.dispatch import matmul_tf32, uses_tf32
 from ..ops.phi import FourierFeatures
+from ..utils.profiling import span
 from .params import SCFGPParams, derive_frequencies, feature_scale
 
 EPSILON = 1e-6  # jitter added to sig2_n, reference SCFGP.py:93,105
@@ -437,17 +438,20 @@ def value_and_grad(loss, p: SCFGPParams, *args, replicas=None, **kwargs):
     (``ops/collectives.py``)."""
     if replicas is None:
         replicas = kwargs.get("axis_name")
-    leaves = SCFGPParams(*map(_leaf, p))
-    with torch.enable_grad():
-        cost, aux = loss(leaves, *args, **kwargs)
-        total = cost.sum()
+    with span("scfgp.grad"):
+        leaves = SCFGPParams(*map(_leaf, p))
+        with torch.enable_grad():
+            with span("scfgp.grad.forward"):
+                cost, aux = loss(leaves, *args, **kwargs)
+                total = cost.sum()
+                if replicas is not None:
+                    total = total / axis_size(replicas)
+            with span("scfgp.grad.backward"):
+                grads = torch.autograd.grad(total, leaves)
         if replicas is not None:
-            total = total / axis_size(replicas)
-        grads = torch.autograd.grad(total, leaves)
-    if replicas is not None:
-        grads = all_reduce_sum(grads, replicas)
-    aux = LossAux(post=Posterior(*(t.detach() for t in aux.post)),
-                  nlml=aux.nlml.detach(), penalty=aux.penalty.detach())
+            grads = all_reduce_sum(grads, replicas)
+        aux = LossAux(post=Posterior(*(t.detach() for t in aux.post)),
+                      nlml=aux.nlml.detach(), penalty=aux.penalty.detach())
     return (cost.detach(), aux), SCFGPParams(*grads)
 
 

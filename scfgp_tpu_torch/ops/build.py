@@ -20,6 +20,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.profiling import setup_span
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -80,14 +82,19 @@ def load_library(name: str, signatures: dict) -> ctypes.CDLL:
     """Build (if needed) and load ``csrc/<name>.cu``, once per process, and
     declare the types of its C functions: ``signatures`` maps a function's
     name to ``(argtypes, restype)``.  Every library also exports
-    ``scfgp_cuda_error_string``."""
+    ``scfgp_cuda_error_string``.  The first load in a process is the span
+    ``scfgp.setup.load_library``, which says whether ``nvcc`` ran."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, (args, res) in {**signatures, **_ERROR_STRING}.items():
-                getattr(lib, fn).argtypes = args
-                getattr(lib, fn).restype = res
+            built = not library_path(name).exists()
+            with setup_span("scfgp.setup.load_library", library=name,
+                            built=built):
+                lib = ctypes.CDLL(str(build(name)))
+                for fn, (args, res) in {**signatures,
+                                        **_ERROR_STRING}.items():
+                    getattr(lib, fn).argtypes = args
+                    getattr(lib, fn).restype = res
             _loaded[name] = lib
         return lib
 

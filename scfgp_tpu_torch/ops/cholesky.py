@@ -44,6 +44,7 @@ import math
 
 import torch
 
+from ..utils.profiling import span
 from .build import load_library, raise_on
 from .phi import refuse_grad
 
@@ -144,16 +145,21 @@ def _check(where, A):
         raise ValueError(f"{where}: A is not contiguous")
 
 
+_SPANS = {"scfgp_chol_f32": "scfgp.K4", "scfgp_chol_inv_f32": "scfgp.K3"}
+
+
 def _launch(fn, A, outs):
-    lib = load_library("cholesky", _SIGNATURES)
     n = A.shape[0]
-    work = torch.empty(lib.scfgp_chol_workspace(n), dtype=torch.float32,
-                       device=A.device)
-    with torch.cuda.device(A.device):
-        stream = torch.cuda.current_stream(A.device).cuda_stream
-        rc = getattr(lib, fn)(A.data_ptr(), *[t.data_ptr() for t in outs],
-                              work.data_ptr(), n, stream)
-    raise_on(lib, rc, fn)
+    with span(_SPANS[fn], trials=1, n=n):
+        lib = load_library("cholesky", _SIGNATURES)
+        work = torch.empty(lib.scfgp_chol_workspace(n), dtype=torch.float32,
+                           device=A.device)
+        with torch.cuda.device(A.device):
+            stream = torch.cuda.current_stream(A.device).cuda_stream
+            rc = getattr(lib, fn)(A.data_ptr(),
+                                  *[t.data_ptr() for t in outs],
+                                  work.data_ptr(), n, stream)
+        raise_on(lib, rc, fn)
 
 
 def _chol(A):

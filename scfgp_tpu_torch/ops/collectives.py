@@ -33,6 +33,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils.profiling import span
+
 
 def resolve_group(axis_name):
     """The group ``axis_name`` is; a string is refused, since a name means
@@ -48,18 +50,24 @@ def axis_size(axis_name) -> int:
     return dist.get_world_size(resolve_group(axis_name))
 
 
+def _all_reduce(t: torch.Tensor, group) -> None:
+    """``dist.all_reduce`` in place, as the span ``scfgp.allreduce``."""
+    with span("scfgp.allreduce", bytes=t.numel() * t.element_size()):
+        dist.all_reduce(t, group=group)
+
+
 class _AllReduce(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.group = group
         out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
+        _all_reduce(out, group)
         return out
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         return g, None
 
 
@@ -77,7 +85,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
+        _all_reduce(g, ctx.group)
         lo = dist.get_rank(ctx.group) * ctx.width
         return g.narrow(ctx.dim, lo, ctx.width), None, None
 
@@ -99,7 +107,7 @@ def all_reduce_sum(tensors, axis_name):
     all-reduce of their concatenation; not differentiable."""
     tensors = list(tensors)
     flat = torch.cat([t.detach().reshape(-1) for t in tensors])
-    dist.all_reduce(flat, group=resolve_group(axis_name))
+    _all_reduce(flat, resolve_group(axis_name))
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].view(t.shape))

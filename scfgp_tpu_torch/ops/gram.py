@@ -52,6 +52,7 @@ from typing import Optional
 import torch
 
 from ..models.params import derive_frequencies, feature_scale
+from ..utils.profiling import span
 from .build import load_library, raise_on
 from .phi import check_kernel_inputs, fourier_features_ref, refuse_grad
 
@@ -64,6 +65,7 @@ _SIGNATURES = {
                                         ctypes.c_int),
                  "scfgp_gram_bwd_workspace": ([_INT] * 3, ctypes.c_size_t)},
 }
+_SPANS = {"gram_fwd": "scfgp.K2f", "gram_bwd": "scfgp.K2b"}
 _THROUGH = "SufficientStatsFn"
 
 
@@ -133,17 +135,18 @@ def _launch(name, X, args, out):
     """Allocate the workspace and launch ``name`` on the current stream;
     ``args`` are the tensors after X, in the C function's order (y, w,
     Fcat, ...)."""
-    lib = load_library(name, _SIGNATURES[name])
     n, d = X.shape
     k = args[2].shape[1]
-    work = torch.empty(getattr(lib, f"scfgp_{name}_workspace")(n, d, k),
-                       dtype=torch.float32, device=X.device)
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = getattr(lib, f"scfgp_{name}_f32")(
-            *[_ptr(t) for t in (X, *args)], work.data_ptr(), out.data_ptr(),
-            n, d, k, stream)
-    raise_on(lib, rc, name)
+    with span(_SPANS[name], trials=1, n=n, d=d, k=k):
+        lib = load_library(name, _SIGNATURES[name])
+        work = torch.empty(getattr(lib, f"scfgp_{name}_workspace")(n, d, k),
+                           dtype=torch.float32, device=X.device)
+        with torch.cuda.device(X.device):
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            rc = getattr(lib, f"scfgp_{name}_f32")(
+                *[_ptr(t) for t in (X, *args)], work.data_ptr(),
+                out.data_ptr(), n, d, k, stream)
+        raise_on(lib, rc, name)
 
 
 def _gram_fwd(X, y, w, Fcat, pcat, scale):

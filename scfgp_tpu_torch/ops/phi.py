@@ -49,6 +49,7 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import span
 from .build import load_library, raise_on
 
 _VOID, _INT = ctypes.c_void_p, ctypes.c_int
@@ -156,17 +157,19 @@ def refuse_grad(where, *tensors, through="FourierFeatures"):
 
 def _phi_fwd(X, Fcat, pcat, scale):
     trials, n, d, k = _check("fourier_features_cuda", X, Fcat, pcat, scale)
-    out = torch.empty((*X.shape[:-1], 2 * k), dtype=torch.float32,
-                      device=X.device)
-    if out.numel() == 0:
-        return out
-    lib = _library("phi_fwd")
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.scfgp_phi_fwd_f32(X.data_ptr(), Fcat.data_ptr(),
-                                   pcat.data_ptr(), scale.data_ptr(),
-                                   out.data_ptr(), trials, n, d, k, stream)
-    raise_on(lib, rc, "phi_fwd")
+    with span("scfgp.K1f", trials=trials, n=n, d=d, k=k):
+        out = torch.empty((*X.shape[:-1], 2 * k), dtype=torch.float32,
+                          device=X.device)
+        if out.numel() == 0:
+            return out
+        lib = _library("phi_fwd")
+        with torch.cuda.device(X.device):
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            rc = lib.scfgp_phi_fwd_f32(X.data_ptr(), Fcat.data_ptr(),
+                                       pcat.data_ptr(), scale.data_ptr(),
+                                       out.data_ptr(), trials, n, d, k,
+                                       stream)
+        raise_on(lib, rc, "phi_fwd")
     fourier_features_cuda.launches += 1
     return out
 
@@ -177,20 +180,21 @@ def _phi_bwd(X, Fcat, pcat, scale, g):
     lead = X.shape[:-2]
     width = d * k + k + 1
     launch = trials > 0 and n > 0 and k > 0
-    out = (torch.empty if launch else torch.zeros)(
-        (*lead, width), dtype=torch.float32, device=X.device)
-    if launch:
-        lib = _library("phi_bwd")
-        part = torch.empty(lib.scfgp_phi_bwd_workspace(trials, n, d, k),
-                           dtype=torch.float32, device=X.device)
-        with torch.cuda.device(X.device):
-            stream = torch.cuda.current_stream(X.device).cuda_stream
-            rc = lib.scfgp_phi_bwd_f32(
-                X.data_ptr(), Fcat.data_ptr(), pcat.data_ptr(),
-                scale.data_ptr(), g.data_ptr(), part.data_ptr(),
-                out.data_ptr(), trials, n, d, k, stream)
-        raise_on(lib, rc, "phi_bwd")
-        fourier_features_bwd_cuda.launches += 1
+    with span("scfgp.K1b", trials=trials, n=n, d=d, k=k):
+        out = (torch.empty if launch else torch.zeros)(
+            (*lead, width), dtype=torch.float32, device=X.device)
+        if launch:
+            lib = _library("phi_bwd")
+            part = torch.empty(lib.scfgp_phi_bwd_workspace(trials, n, d, k),
+                               dtype=torch.float32, device=X.device)
+            with torch.cuda.device(X.device):
+                stream = torch.cuda.current_stream(X.device).cuda_stream
+                rc = lib.scfgp_phi_bwd_f32(
+                    X.data_ptr(), Fcat.data_ptr(), pcat.data_ptr(),
+                    scale.data_ptr(), g.data_ptr(), part.data_ptr(),
+                    out.data_ptr(), trials, n, d, k, stream)
+            raise_on(lib, rc, "phi_bwd")
+            fourier_features_bwd_cuda.launches += 1
     return (out[..., :d * k].view(*lead, d, k), out[..., d * k:d * k + k],
             out[..., d * k + k])
 

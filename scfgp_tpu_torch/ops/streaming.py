@@ -39,6 +39,7 @@ either route.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -53,6 +54,7 @@ from .collectives import psum
 from ..models.params import SCFGPParams, derive_frequencies, feature_scale
 from .gram import SufficientStatsFn
 from .phi import FourierFeatures
+from ..utils.profiling import setup_span, span
 
 # stats_impl: "gemm" builds each block's Phi and takes its Gram by a matrix
 # product (the JAX package's "xla"); "kernel" takes the Phi-free K2
@@ -61,8 +63,10 @@ STATS_IMPLS = ("gemm", "kernel")
 
 
 def _checkpointed(fn, *args):
-    return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False)
+    # The process's first call imports what checkpointing needs (seconds).
+    with setup_span("scfgp.setup.first_checkpoint", once=True):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
 
 class _Stream:
@@ -113,8 +117,17 @@ class _Stream:
         if not self.lead or t is None:
             return t
         if t.dim() == 2:
-            return t.expand(*self.lead, *t.shape).contiguous()
+            with span("scfgp.stream.trial_copy",
+                      bytes=math.prod(self.lead) * t.numel()
+                      * t.element_size()):
+                return t.expand(*self.lead, *t.shape).contiguous()
         return t.expand(*self.lead, -1)
+
+    def span(self, what):
+        """A span of this stream's pass or solve, with its route and
+        size."""
+        return span(f"scfgp.stream.{what}", route=self.stats_impl,
+                    rows=self.X.shape[0], blocks=len(self.blocks))
 
     def features(self, Xi):
         """Phi of the 2-D block ``Xi``, (rows, 2K) or (B, rows, 2K)."""
@@ -153,8 +166,10 @@ def streaming_posterior(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     """``(stats, post)``: pass 1 and the solve of ``loss_fn_streaming``,
     the posterior a prediction needs, without pass 2."""
     st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn)
-    stats = st.stats()
-    return stats, solve_posterior(stats, torch.exp(2.0 * p.a))
+    with st.span("pass1"):
+        stats = st.stats()
+    with st.span("solve"):
+        return stats, solve_posterior(stats, torch.exp(2.0 * p.a))
 
 
 def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
@@ -181,10 +196,12 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
     st = _Stream(p, X, y, w, block_size, stats_impl, basis_fn, mm_precision)
     sig2_n = torch.exp(2.0 * p.a)
     noise = softplus(p.c)
-    stats = st.stats()
-    if axis_name is not None:
-        stats = psum_stats(stats, axis_name)
-    post = solve_posterior(stats, sig2_n)
+    with st.span("pass1"):
+        stats = st.stats()
+        if axis_name is not None:
+            stats = psum_stats(stats, axis_name)
+    with st.span("solve"):
+        post = solve_posterior(stats, sig2_n)
 
     def enll_block(Xi, yi, wi):
         mu_f, var_f = latent_moments(st.features(Xi), post,
@@ -199,13 +216,14 @@ def loss_fn_streaming(p: SCFGPParams, X: torch.Tensor, y: torch.Tensor,
                 torch.sum(r2, dim=-1) if residual_fit else e.new_zeros(()))
 
     enll_sum = r2_sum = 0.0
-    for b in st.blocks:
-        e, r2 = _checkpointed(enll_block, *st.rows(b))
-        enll_sum, r2_sum = enll_sum + e, r2_sum + r2
-    if axis_name is not None:
-        enll_sum = psum(enll_sum, axis_name)
-        if residual_fit:
-            r2_sum = psum(r2_sum, axis_name)
+    with st.span("pass2"):
+        for b in st.blocks:
+            e, r2 = _checkpointed(enll_block, *st.rows(b))
+            enll_sum, r2_sum = enll_sum + e, r2_sum + r2
+        if axis_name is not None:
+            enll_sum = psum(enll_sum, axis_name)
+            if residual_fit:
+                r2_sum = psum(r2_sum, axis_name)
 
     if residual_fit:
         fit = r2_sum + (sig2_n + EPSILON) * torch.sum(

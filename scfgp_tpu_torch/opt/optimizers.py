@@ -30,6 +30,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from ..utils.profiling import span
+
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the tensor leaves of ``tree`` (and the matching leaves of
@@ -242,10 +244,17 @@ algos = {
 def make_optimizer(algo: str = "adam", algo_params: dict | None = None,
                    nesterov_momentum: float = 0.9) -> Transform:
     """Build the reference's full composition: <algo> + Nesterov 0.9
-    (``SCFGP.py:130-131``).  Set ``nesterov_momentum=None`` to disable."""
+    (``SCFGP.py:130-131``).  Set ``nesterov_momentum=None`` to disable.
+    Its ``update`` is the span ``scfgp.opt.update``
+    (``utils/profiling.py``)."""
     if algo not in algos:
         raise ValueError(f"Unknown optimizer {algo!r}; options: {list(algos)}")
     tx = algos[algo](**(algo_params or {}))
     if nesterov_momentum is not None:
         tx = apply_nesterov_momentum(tx, momentum=nesterov_momentum)
-    return tx
+
+    def update(grads, state, params):
+        with span("scfgp.opt.update"):
+            return tx.update(grads, state, params)
+
+    return Transform(tx.init, update)

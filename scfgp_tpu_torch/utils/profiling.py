@@ -1,10 +1,27 @@
 """Tracing, call timing, and numerics-debug modes.
 
-The port of ``scfgp_tpu/utils/profiling.py``:
+The port of ``scfgp_tpu/utils/profiling.py``, with the program's spans:
 
   * ``trace(dir)`` — a ``torch.profiler`` trace of a block (host and, on
     the card, device activity), written to ``dir`` for TensorBoard or
-    Perfetto;
+    Perfetto.  It turns the program's spans on;
+  * ``span(name, **attrs)`` — a span of the program's own, named
+    ``scfgp.<layer>.<what>`` and fixed per site (pass 1, 2 and the solve of
+    the streaming objective, the trial-axis copy of X, the forward and
+    backward of a gradient, each kernel launch, the optimizer's update, the
+    sampler's gradient and move, each all-reduce).  It is off unless a
+    ``torch.profiler`` is recording: otherwise one flag read returns a
+    shared no-op context, which records nothing, launches nothing,
+    synchronises nothing and reads nothing from the device.  While a
+    profiler records, it opens the profiler's record of a range under its
+    name (what ``record_function`` opens, at a ninth of the cost), so the
+    span sits in the trace on the clock of the device activity and the
+    kernels launched inside it are found by correlation id, and it
+    appends a ``SpanRecord`` (name, parent, thread, host start and end,
+    attrs) to a bounded in-memory store that ``spans()`` returns: a
+    chrome trace carries no attrs.
+    ``setup_span`` records once-a-process set-up (the first checkpointed
+    call, each library load) whether or not a profiler records;
   * ``time_fn`` — time a callable, returning ``{'calls_per_s',
     'ms_per_call'}``.  On the card it times with CUDA events; with
     ``clock="device"`` a sleep kernel holds the stream while the host
@@ -25,12 +42,16 @@ The port of ``scfgp_tpu/utils/profiling.py``:
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 # Cycles of the first sleep that hides the host's enqueue (~5 ms at the
 # H100's clocks); doubled until the device is still asleep when the last
@@ -41,10 +62,114 @@ _SLEEP_CYCLES = 10_000_000
 _PAD_S = 0.05
 
 
+# Records the span store keeps (~150 bytes each), the oldest dropped
+# first: ~1,400 streaming steps at 16 blocks, or ~200 transitions of the
+# streaming sampler at 62 blocks (~630 spans each).
+SPAN_STORE_MAX = 1 << 17
+
+
+class SpanRecord(NamedTuple):
+    """One closed span.  ``start_ns`` and ``end_ns`` are ``time.time_ns()``,
+    the clock ``torch.profiler`` stamps host events with: in a chrome
+    trace the span's ``ts`` is ``(start_ns - baseTimeNanoseconds) / 1e3``
+    µs.  ``parent`` is the ``id`` of the span open on the same thread when
+    this one opened (None at the top of a thread: autograd runs a CUDA
+    backward on a thread of its own); ``thread`` the OS thread id, the
+    trace's ``tid``."""
+    id: int
+    name: str
+    parent: Optional[int]
+    thread: int
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+# Flat tuples of ints and strings (the attrs' keys and values after the
+# end), which the garbage collector stops tracking, where it would track a
+# record and its dict for good: the store adds nothing to a full
+# collection's work.
+_store: collections.deque = collections.deque(maxlen=SPAN_STORE_MAX)
+_ids = itertools.count()
+_local = threading.local()
+_once_seen: set = set()
+_OFF = contextlib.nullcontext()
+# The profiler's record of a named range, as ``torch.profiler.
+# record_function`` opens one (the same event, category ``cpu_op``), at
+# ~1 µs a span in place of ~9, and stamped within a few µs of
+# ``time.time_ns()`` around it, where ``record_function`` drifts by tens.
+_RecordRange = torch._C._profiler._RecordFunctionFast
+
+
+class _Span:
+    """Opens the profiler's record of a range while a profiler records;
+    on closing, appends a ``SpanRecord`` to the store."""
+
+    __slots__ = ("name", "attrs", "_rf", "_id", "_parent", "_start")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        self._rf = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._rf = _RecordRange(self.name)
+            self._rf.__enter__()
+        stack = getattr(_local, "stack", None)
+        if stack is None:
+            # Once a thread: the OS thread id takes a system call, ~10 µs
+            # under a user-space kernel such as gVisor, 5x a span's cost.
+            stack = _local.stack = []
+            _local.tid = threading.get_native_id()
+        self._parent = stack[-1] if stack else None
+        self._id = next(_ids)
+        stack.append(self._id)
+        self._start = time.time_ns()
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        _local.stack.pop()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        _store.append((self._id, self.name, self._parent, _local.tid,
+                       self._start, end,
+                       *itertools.chain.from_iterable(self.attrs.items())))
+        return False
+
+
+def span(name: str, **attrs):
+    """``with span("scfgp.stream.pass1", rows=n): ...``: a span of the
+    program, recorded only while a ``torch.profiler`` records (module
+    docstring); otherwise a shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, attrs)
+
+
+def setup_span(name: str, once: bool = False, **attrs):
+    """A span recorded whether or not a profiler records, for set-up that
+    runs once a process and costs nothing on a hot path.  With ``once``
+    only the process's first call of ``name`` is recorded; later calls
+    get the shared no-op context."""
+    if once:
+        if name in _once_seen:
+            return _OFF
+        _once_seen.add(name)
+    return _Span(name, attrs)
+
+
+def spans() -> list:
+    """The store's ``SpanRecord``s in the order they closed (at most
+    ``SPAN_STORE_MAX``; the oldest go first)."""
+    return [SpanRecord(*r[:6], dict(zip(r[6::2], r[7::2])))
+            for r in _store]
+
+
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Profile a block: ``with trace('/tmp/trace'): step(...)``.  Yields the
-    profiler, whose ``key_averages()`` sum the time by op and kernel."""
+    profiler, whose ``key_averages()`` sum the time by op and kernel.  The
+    program's spans (``span``) are on inside it."""
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
     activities = [ProfilerActivity.CPU]

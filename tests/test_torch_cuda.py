@@ -453,6 +453,54 @@ def test_batched_kernels_equal_per_trial_calls(cuda_device, B, n, d, k):
 
 
 @pytest.mark.cuda
+def test_kernel_spans_hold_their_launch_and_shape(cuda_device, tmp_path):
+    """Under ``profiling.trace`` each launch of K1f, K1b (3 trials), K2f
+    and K2b is one span named for its kernel, with its shape, holding the
+    device work it launched (``portbench/spans.py``)."""
+    import glob
+
+    from portbench.spans import load
+    from scfgp_tpu_torch.utils import profiling
+
+    B, n, d, k = 3, 300, 9, 129
+    rng = np.random.RandomState(0)
+    X, F, p, s, g = (torch.as_tensor(a, dtype=torch.float32,
+                                     device=cuda_device)
+                     for a in (rng.rand(B, n, d), 3.0 * rng.randn(B, d, k),
+                               rng.uniform(0, 2 * np.pi, (B, k)),
+                               rng.uniform(0.5, 1.5, B),
+                               rng.randn(B, n, 2 * k)))
+    X2, y, w, F2, p2, s2, cbar, pbar = _k2_inputs(n, d, k, True,
+                                                  cuda_device)
+    calls = [lambda: fourier_features_cuda(X, F, p, s),
+             lambda: fourier_features_bwd_cuda(X, F, p, s, g),
+             lambda: sufficient_stats_cuda(X2, y, w, F2, p2, s2),
+             lambda: sufficient_stats_bwd_cuda(X2, y, w, F2, p2, s2, cbar,
+                                               pbar)]
+    for call in calls:  # built and loaded outside the trace
+        call()
+    torch.cuda.synchronize()
+    before = len(profiling.spans())
+    with profiling.trace(str(tmp_path)):
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    records = profiling.spans()[before:]
+    shape = dict(n=n, d=d, k=k)
+    assert [(r.name, r.attrs) for r in records] == [
+        ("scfgp.K1f", dict(trials=B, **shape)),
+        ("scfgp.K1b", dict(trials=B, **shape)),
+        ("scfgp.K2f", dict(trials=1, **shape)),
+        ("scfgp.K2b", dict(trials=1, **shape))]
+    path, = glob.glob(str(tmp_path / "*.json"))
+    reading = load(path)
+    for name in ("scfgp.K1f", "scfgp.K1b", "scfgp.K2f", "scfgp.K2b"):
+        assert reading.count[name] == 1
+        assert reading.self_ms[name] > 0.0, name
+    assert reading.covered_ms == pytest.approx(reading.device_ms)
+
+
+@pytest.mark.cuda
 def test_batched_kernel_wrappers_refuse_mixed_ranks(cuda_device):
     X, F, p, s = _inputs(64, 4, 9, cuda_device)
     Xb, Fb, pb = X[None].contiguous(), F[None].contiguous(), p[None]
