@@ -821,7 +821,7 @@ def plain_fourier_features(params, X):
 
 class PlainFeatures:
     """``FourierFeatures`` by the plain PyTorch version, differentiable by
-    autograd, for the streaming objective's blocks."""
+    autograd, for the streaming objective's block forwards."""
 
     @staticmethod
     def apply(X, Fcat, pcat, scale):
@@ -833,19 +833,23 @@ class PlainFeatures:
 def plain_feature_map():
     """Run the model's objective, dense, streaming and tensor-parallel, on
     the plain feature map: every loss, gradient and prediction inside skips
-    K1f and K1b."""
+    K1f and K1b (the streaming blocks' hand-written backwards included)."""
     from scfgp_tpu_torch.models import objective
     from scfgp_tpu_torch.ops import streaming
+    from scfgp_tpu_torch.ops.phi import fourier_features_ref, phi_bwd_ref
     from scfgp_tpu_torch.parallel import tp
     kernel, blocks, strips = (objective.fourier_features,
                               streaming.FourierFeatures, tp.FourierFeatures)
+    block_maps = streaming.phi_fwd_op, streaming.phi_bwd
     objective.fourier_features = plain_fourier_features
     streaming.FourierFeatures = tp.FourierFeatures = PlainFeatures
+    streaming.phi_fwd_op, streaming.phi_bwd = fourier_features_ref, phi_bwd_ref
     try:
         yield
     finally:
         objective.fourier_features = kernel
         streaming.FourierFeatures, tp.FourierFeatures = blocks, strips
+        streaming.phi_fwd_op, streaming.phi_bwd = block_maps
 
 
 def trial_of(tree, b):

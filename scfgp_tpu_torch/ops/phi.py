@@ -36,7 +36,8 @@ and counts the launch.
 
 ``FourierFeatures`` joins the two directions into one
 ``torch.autograd.Function`` (the JAX package's ``custom_vjp``,
-``scfgp_tpu/ops/phi.py:168-187``): its forward is ``phi_fwd_op``; it saves
+``scfgp_tpu/ops/phi.py:168-187``): its forward is ``phi_fwd_op``, its
+backward ``phi_bwd``, the same choice of version for the backward; it saves
 X, Fcat, pcat and s, not Phi, and gives X, which is data, no gradient.  A
 CUDA tensor goes to the kernels, a CPU tensor to the plain versions; there
 is no fallback.  The raw kernel wrappers refuse tensors that require grad:
@@ -249,6 +250,18 @@ def _phi_fwd_op_fake(X, Fcat, pcat, scale):
     return X.new_empty((*X.shape[:-1], 2 * Fcat.shape[-1]))
 
 
+def phi_bwd(X: torch.Tensor, Fcat: torch.Tensor, pcat: torch.Tensor,
+            scale: torch.Tensor, g: torch.Tensor):
+    """``(dFcat, dpcat, ds)`` of the feature map from its cotangent ``g``:
+    K1b (``_phi_bwd``, looked up here at each call) for a CUDA tensor, the
+    plain version for a CPU tensor.  No autograd: the backward of
+    ``FourierFeatures`` and of the streaming blocks
+    (``ops/streaming.py``)."""
+    if X.device.type == "cpu":
+        return phi_bwd_ref(X, Fcat, pcat, scale, g)
+    return _phi_bwd(X, Fcat, pcat, scale, g.contiguous())
+
+
 class FourierFeatures(torch.autograd.Function):
     """Feature map differentiable in (Fcat, pcat, scale): K1f forward, K1b
     backward on the card; the plain versions on the CPU."""
@@ -261,8 +274,5 @@ class FourierFeatures(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         X, Fcat, pcat, scale = ctx.saved_tensors
-        if X.device.type == "cpu":
-            dF, dp, ds = phi_bwd_ref(X, Fcat, pcat, scale, g)
-        else:
-            dF, dp, ds = _phi_bwd(X, Fcat, pcat, scale, g.contiguous())
+        dF, dp, ds = phi_bwd(X, Fcat, pcat, scale, g)
         return None, dF, dp, ds.reshape(scale.shape)

@@ -20,8 +20,8 @@ The port of ``scfgp_tpu/utils/profiling.py``, with the program's spans:
     appends a ``SpanRecord`` (name, parent, thread, host start and end,
     attrs) to a bounded in-memory store that ``spans()`` returns: a
     chrome trace carries no attrs.
-    ``setup_span`` records once-a-process set-up (the first checkpointed
-    call, each library load) whether or not a profiler records;
+    ``setup_span`` records once-a-process set-up (each library load)
+    whether or not a profiler records;
   * ``time_fn`` — time a callable, returning ``{'calls_per_s',
     'ms_per_call'}``.  On the card it times with CUDA events; with
     ``clock="device"`` a sleep kernel holds the stream while the host
@@ -92,7 +92,6 @@ class SpanRecord(NamedTuple):
 _store: collections.deque = collections.deque(maxlen=SPAN_STORE_MAX)
 _ids = itertools.count()
 _local = threading.local()
-_once_seen: set = set()
 _OFF = contextlib.nullcontext()
 # The profiler's record of a named range, as ``torch.profiler.
 # record_function`` opens one (the same event, category ``cpu_op``), at
@@ -146,15 +145,9 @@ def span(name: str, **attrs):
     return _Span(name, attrs)
 
 
-def setup_span(name: str, once: bool = False, **attrs):
+def setup_span(name: str, **attrs):
     """A span recorded whether or not a profiler records, for set-up that
-    runs once a process and costs nothing on a hot path.  With ``once``
-    only the process's first call of ``name`` is recorded; later calls
-    get the shared no-op context."""
-    if once:
-        if name in _once_seen:
-            return _OFF
-        _once_seen.add(name)
+    runs once a process and costs nothing on a hot path."""
     return _Span(name, attrs)
 
 

@@ -2,7 +2,9 @@
 stats routes against the JAX package's ``loss_fn_streaming`` and against
 the port's dense ``loss_fn``, in value and gradient; and the large
 synthetics against the JAX package's.  The cases are those of
-tests/test_streaming.py.
+tests/test_streaming.py.  The blocks' hand-written backwards against
+plain autograd through the same block bodies, and the row-sized products
+and feature-map recomputes one backward makes.
 
 Tolerances, each with its reason:
   * f64 value: rtol 1e-12 on the cost and 1e-9 on the posterior mean, the
@@ -13,14 +15,24 @@ Tolerances, each with its reason:
     interpret mode: rtol 2e-4 on the cost, rtol 1e-2 and atol 1e-3 on the
     gradient, the JAX package's own tolerances for that route against the
     dense path (tests/test_streaming.py:80-87): f32 rounding through a 2K x
-    2K Cholesky.
+    2K Cholesky;
+  * the hand-written block backwards against autograd through the same
+    bodies, f64: the value bitwise (the same forward), each gradient entry
+    rtol 1e-10 (the same algebra in another order: Phi (C̄ + C̄ᵀ) for
+    C̄ᵀ-and-C̄ products, closed-form row cotangents for autograd's chain);
+    atol 1e-12 on the phases alone: a phase rotates its (cos, sin) pair of
+    columns, which the objective does not see, so their gradient is zero
+    in exact arithmetic and both sides read rounding (~1e-16).
 """
+
+import itertools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from scfgp_tpu.data import datasets as jdata
 from scfgp_tpu.models import objective as jobj
@@ -31,8 +43,10 @@ from scfgp_tpu_torch.models import objective as tobj
 from scfgp_tpu_torch.models.params import params_from_numpy
 from scfgp_tpu_torch.ops.gram import (sufficient_stats_bwd_cuda,
                                       sufficient_stats_cuda)
+from scfgp_tpu_torch.ops import streaming
 from scfgp_tpu_torch.ops.streaming import (loss_and_grad_streaming,
-                                           loss_fn_streaming)
+                                           loss_fn_streaming,
+                                           streaming_posterior)
 
 torch.set_num_threads(1)
 
@@ -160,3 +174,113 @@ def test_synthetics_equal_jax_bitwise(seed):
                     jdata.synthetic_gp_rff(200, 5, 3, 16, seed=seed)):
         assert a.dtype == b.dtype and np.array_equal(a, b)
 
+
+
+class _PlainStats:
+    """Pass 1's block by autograd through its body, as the block was
+    differentiated before its backward was written by hand."""
+
+    @staticmethod
+    def apply(st, *rows):
+        return st.stats_block(*rows)
+
+
+class _PlainEnll:
+    @staticmethod
+    def apply(st, residual_fit, *rows):
+        return st.enll_block(*rows, residual_fit)
+
+
+def _basis(Xi):
+    return torch.stack([torch.ones_like(Xi[:, 0]), Xi[:, 0]], dim=1)
+
+
+def _trials_problem(trials, seed):
+    """θ for ``trials`` trials (none: 2-D leaves), each from its own JAX
+    init, and the data."""
+    theta, X, y = _problem(96, seed)
+    if trials:
+        thetas = [_problem(1, seed + 10 * (b + 1))[0] for b in range(trials)]
+        theta = [np.stack(leaves) for leaves in zip(*thetas)]
+    return theta, X, y
+
+
+# route, trials, weighted, residual_fit, basis_fn, mm_precision: the kernel
+# route takes no trial axis and no basis_fn.
+BLOCK_CASES = [c for c in itertools.product(
+    ROUTES, (0, 3), (False, True), (False, True), (False, True),
+    (None, "highest")) if c[0] == "gemm" or not (c[1] or c[4])]
+
+
+@pytest.mark.parametrize("route,trials,weighted,residual_fit,basis,precision",
+                         BLOCK_CASES)
+def test_block_backward_matches_autograd_f64(route, trials, weighted,
+                                             residual_fit, basis, precision,
+                                             monkeypatch):
+    theta, X, y = _trials_problem(trials, seed=6)
+    w = 0.25 + np.random.RandomState(7).rand(len(y)) if weighted else None
+    p, Xt, yt, wt = _port(theta, X, y, w)
+    kw = dict(w=wt, block_size=32, stats_impl=route, residual_fit=residual_fit,
+              basis_fn=_basis if basis else None, mm_precision=precision)
+    (c, _), g = loss_and_grad_streaming(p, Xt, yt, **kw)
+    monkeypatch.setattr(streaming, "_StatsBlock", _PlainStats)
+    monkeypatch.setattr(streaming, "_EnllBlock", _PlainEnll)
+    (c_plain, _), g_plain = loss_and_grad_streaming(p, Xt, yt, **kw)
+    assert c.shape == ((trials,) if trials else ())
+    assert torch.equal(c, c_plain)
+    for name, a, b in zip(g._fields, g, g_plain):
+        atol = 1e-12 if name in ("l_phase", "phase") else 0.0
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-10,
+                                   atol=atol, err_msg=name)
+
+
+class _CountProducts(TorchDispatchMode):
+    """Counts the row-sized matrix products (one of m, k, n the block's
+    rows, the other two at least the feature width) and the feature-map
+    forwards that run inside it."""
+
+    def __init__(self, rows, width):
+        super().__init__()
+        self.rows, self.width = rows, width
+        self.products = self.features = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.overloadpacket.__name__
+        if name == "phi_fwd":
+            self.features += 1
+        elif name in ("mm", "bmm", "addmm", "baddbmm", "addmm_",
+                      "baddbmm_"):
+            a, b = args[-2:] if name.startswith(("addmm", "baddbmm")) \
+                else args[:2]
+            dims = [a.shape[-2], a.shape[-1], b.shape[-1]]
+            if self.rows in dims:
+                dims.remove(self.rows)
+                self.products += min(dims) >= self.width
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("route,trials", [("gemm", 3), ("kernel", 0)])
+def test_one_backward_counts_products_and_recomputes(route, trials):
+    """Pass 1's block backward on the "gemm" route takes one row-sized
+    product and pass 2's three; each recomputes Phi once.  On the CPU the
+    "kernel" route's pass 1 backward is the plain K2b (``gram_bwd_ref``),
+    which takes its ΦĀ product; on the card K2b takes it in its kernel."""
+    rows, blocks = 32, 3
+    theta, X, y = _trials_problem(trials, seed=8)
+    p, Xt, yt = _port(theta, X, y)
+    width = 2 * (p.S + p.M)
+
+    def backward_counts(loss):
+        leaves = type(p)(*(t.detach().requires_grad_() for t in p))
+        total = loss(leaves)
+        with _CountProducts(rows, width) as count:
+            torch.autograd.grad(total, leaves, allow_unused=True)
+        return count.products, count.features
+
+    pass1 = backward_counts(lambda q: sum(
+        t.sum() for t in streaming_posterior(
+            q, Xt, yt, block_size=rows, stats_impl=route)[0][:2]))
+    both = backward_counts(lambda q: loss_fn_streaming(
+        q, Xt, yt, block_size=rows, stats_impl=route)[0].sum())
+    assert pass1 == ((blocks, blocks) if route == "gemm" else (blocks, 0))
+    assert both == (pass1[0] + 3 * blocks, pass1[1] + blocks)

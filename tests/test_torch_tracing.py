@@ -7,7 +7,8 @@ step on each route (N=96, D=4, S=2, M=6, blocks of 32) and one
 leave each site's span in the chrome trace, with the expected count and
 nesting, and the same spans in the store (``profiling.spans()``): the
 same names and parents, host start and end on the trace's clock to 50 µs,
-and each trial-axis X copy's bytes.  The kernel spans (K1f, K1b, K2f,
+each trial-axis X copy's bytes, and one hand-written block backward a
+block a pass inside the gradient's backward.  The kernel spans (K1f, K1b, K2f,
 K2b) fire only on the card: ``tests/test_torch_cuda.py``.
 """
 
@@ -66,6 +67,9 @@ STEP = {"scfgp.grad": (1, None),
         "scfgp.stream.pass1": (1, "scfgp.grad.forward"),
         "scfgp.stream.solve": (1, "scfgp.grad.forward"),
         "scfgp.stream.pass2": (1, "scfgp.grad.forward")}
+# The hand-written block backwards: each pass's blocks on the "gemm" route,
+# pass 2's on the "kernel" route (K2b takes pass 1's).
+BLOCK_BACKWARDS = {"gemm": 2 * BLOCKS, "kernel": BLOCKS, "sgld": 2 * BLOCKS}
 EXPECTED = {
     "gemm": {**STEP, "scfgp.opt.update": (1, None)},
     "kernel": {**STEP, "scfgp.opt.update": (1, None)},
@@ -77,9 +81,12 @@ EXPECTED = {
              # recompute of each copies it again.
              "scfgp.stream.trial_copy": (4 * BLOCKS, None)},
 }
+for _case, _count in BLOCK_BACKWARDS.items():
+    EXPECTED[_case]["scfgp.stream.block_backward"] = (
+        _count, "scfgp.grad.backward")
 # Where the trial-axis copies sit: each pass's, and the recomputes'.
 COPY_PARENTS = {"scfgp.stream.pass1": BLOCKS, "scfgp.stream.pass2": BLOCKS,
-                "scfgp.grad.backward": 2 * BLOCKS}
+                "scfgp.stream.block_backward": 2 * BLOCKS}
 
 
 def _parents(spans):
@@ -97,9 +104,8 @@ def _parents(spans):
 
 @pytest.fixture(scope="module")
 def traced(tmp_path_factory):
-    """Each case once with no profiler (the process's first checkpointed
-    call is recorded then), then under ``profiling.trace``: its chrome
-    trace's program spans and the store's new records."""
+    """Each case once with no profiler, then under ``profiling.trace``:
+    its chrome trace's program spans and the store's new records."""
     out = {}
     for case in CASES:
         RUN[case]()
@@ -174,8 +180,8 @@ def test_store_matches_trace(case, traced):
         assert abs((r.end_ns - base) / 1e3 - (e["ts"] + e["dur"])) < 50.0
         assert (by_id[r.parent].name if r.parent is not None
                 else None) == parent
-        if r.name.startswith("scfgp.stream.") and r.name != (
-                "scfgp.stream.trial_copy"):
+        if r.name.startswith("scfgp.stream.") and r.name not in (
+                "scfgp.stream.trial_copy", "scfgp.stream.block_backward"):
             assert r.attrs == {"route": "kernel" if case == "kernel"
                                else "gemm", "rows": N, "blocks": BLOCKS}
 
@@ -198,13 +204,25 @@ def test_store_leaves_the_garbage_collector_no_work(traced):
     assert not any(gc.is_tracked(r) for r in profiling._store)
 
 
-def test_first_checkpoint_is_recorded_once():
-    """The first checkpointed call of the process is a set-up span,
-    recorded with no profiler; later calls record nothing."""
-    _stream_step("gemm")
-    firsts = [r for r in profiling.spans()
-              if r.name == "scfgp.setup.first_checkpoint"]
-    assert len(firsts) == 1 and firsts[0].end_ns >= firsts[0].start_ns
+@pytest.mark.parametrize("case", CASES)
+def test_block_backward_spans(case, traced):
+    """One step records ``scfgp.stream.block_backward`` once a block a
+    pass that the route differentiates by hand (both passes on the "gemm"
+    route, pass 2 on the "kernel" route), each inside
+    ``scfgp.grad.backward``, with its pass, route, trials and rows."""
+    _, records, _ = traced[case]
+    by_id = {r.id: r for r in records}
+    blocks = [r for r in records if r.name == "scfgp.stream.block_backward"]
+    assert len(blocks) == BLOCK_BACKWARDS[case]
+    for r in blocks:
+        assert by_id[r.parent].name == "scfgp.grad.backward"
+    passes = (1, 2) if case != "kernel" else (2,)
+    assert Counter(r.attrs["pass_"] for r in blocks) == Counter(
+        {n: BLOCKS for n in passes})
+    assert {tuple(sorted(r.attrs.items())) for r in blocks} == {
+        (("pass_", n), ("route", "kernel" if case == "kernel" else "gemm"),
+         ("rows", BLOCK), ("trials", CHAINS if case == "sgld" else 1))
+        for n in passes}
 
 
 def test_allreduce_span_carries_its_bytes(tmp_path):
